@@ -1,0 +1,116 @@
+"""Windowed segment max: the CUDA kernel ``csrc/segment_max_window.cu``
+behind the same function as the JAX package's Pallas kernel
+``ops/pallas/segment_max_window.py:windowed_vals``, plus its plain
+PyTorch version.
+
+``windowed_vals`` takes the plain version only for tensors on the CPU.
+For CUDA tensors it launches the kernel or raises; it never falls back.
+``windowed_vals.launches`` counts the kernel's launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..segment import segment_counts
+from . import load
+
+NEG = -3.0e38
+_BLOCK_M = 8          # nodes per pass of the plain version
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_fn = None
+
+
+def windowed_vals_plain(data: torch.Tensor, seg_ids: torch.Tensor,
+                        num_segments: int) -> torch.Tensor:
+    """Plain PyTorch version: f32 (B, M, C) per-node maxima of ``data``
+    (B, N, C) over the points with ``seg_ids`` (B, N) == node, -3e38 for
+    an empty node; ids outside ``[0, M)`` are ignored.  A masked max over
+    a few nodes at a time."""
+    B, N, C = data.shape
+    M = num_segments
+    out = torch.full((B, M, C), NEG, dtype=torch.float32, device=data.device)
+    if N == 0:
+        return out
+    x = data.float()[:, :, None, :]                       # (B, N, 1, C)
+    neg = torch.tensor(NEG, dtype=torch.float32, device=data.device)
+    for m0 in range(0, M, _BLOCK_M):
+        mids = torch.arange(m0, min(m0 + _BLOCK_M, M), device=data.device,
+                            dtype=seg_ids.dtype)
+        member = (seg_ids[:, :, None] == mids)[..., None]  # (B, N, bm, 1)
+        out[:, m0:m0 + _BLOCK_M] = torch.where(member, x, neg).amax(1)
+    # an all -inf node reads -3e38 in the kernel too (it starts there)
+    return out.clamp_min_(NEG)
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        fn = load("segment_max_window").sonet_segment_max_window
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def windowed_vals(data: torch.Tensor, seg_ids: torch.Tensor,
+                  num_segments: int) -> torch.Tensor:
+    """f32 (B, M, C) per-node maxima, empty nodes at -3e38 (callers patch
+    empties; see ``segment_max_windowed`` and ``ops.segment_fast``).
+
+    data (B, N, C) bf16 or f32, contiguous; seg_ids (B, N) int32, sorted
+    for speed, any order for correctness.
+    """
+    if data.device.type == "cpu" and seg_ids.device.type == "cpu":
+        return windowed_vals_plain(data, seg_ids, num_segments)
+    if data.device.type != "cuda" or seg_ids.device != data.device:
+        raise ValueError(f"windowed_vals: data on {data.device} and seg_ids "
+                         f"on {seg_ids.device}; both must be on one CUDA "
+                         "device (or both on the CPU)")
+    if data.dtype not in _DTYPE_CODE:
+        raise TypeError(f"windowed_vals: data dtype {data.dtype}, want "
+                        "float32 or bfloat16")
+    if seg_ids.dtype != torch.int32:
+        raise TypeError(f"windowed_vals: seg_ids dtype {seg_ids.dtype}, "
+                        "want int32")
+    if data.dim() != 3 or tuple(seg_ids.shape) != tuple(data.shape[:2]):
+        raise ValueError(f"windowed_vals: data {tuple(data.shape)} and "
+                         f"seg_ids {tuple(seg_ids.shape)}; want (B, N, C) "
+                         "and (B, N)")
+    if not (data.is_contiguous() and seg_ids.is_contiguous()):
+        raise ValueError("windowed_vals: data and seg_ids must be contiguous")
+    B, N, C = data.shape
+    M = int(num_segments)
+    if B > 65535 or N > 64 * 65535 or max(C, M) >= 2 ** 31 or M < 0:
+        raise ValueError(f"windowed_vals: B={B}, N={N}, C={C}, M={M} out of "
+                         "the kernel's range")
+    out = torch.empty((B, M, C), dtype=torch.float32, device=data.device)
+    fn = _kernel()
+    with torch.cuda.device(data.device):
+        stream = torch.cuda.current_stream(data.device).cuda_stream
+        err = fn(data.data_ptr(), _DTYPE_CODE[data.dtype], seg_ids.data_ptr(),
+                 out.data_ptr(), B, N, C, M, stream)
+    if err != 0:
+        raise RuntimeError(f"segment_max_window kernel launch failed: "
+                           f"cudaError {err}")
+    windowed_vals.launches += 1
+    return out
+
+
+windowed_vals.launches = 0
+
+
+def segment_max_windowed(data: torch.Tensor, seg_ids: torch.Tensor,
+                         num_segments: int,
+                         counts: torch.Tensor | None = None) -> torch.Tensor:
+    """Segment max values (B, M, C) in ``data.dtype``; an empty node takes
+    data[:, 0].  ``counts`` (B, M) may be passed to skip recounting."""
+    vals = windowed_vals(data, seg_ids, num_segments)
+    if counts is None:
+        counts = segment_counts(seg_ids, num_segments)
+    empty = (counts == 0)[..., None]
+    return torch.where(empty, data[:, 0:1, :].float(), vals).to(data.dtype)

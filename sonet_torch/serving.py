@@ -1,0 +1,209 @@
+"""Request-level serving of an eval-mode model (port of the JAX package's
+``serving.py``: ``batch_buckets``, ``input_signature``, ``build_serve_fn``
+and ``ServingEngine`` with ``predict`` / ``warmup`` / ``stats``).
+
+The engine serves a model at a fixed batch size ``B``: a request of any
+``B' >= 1`` items is cut into ``ceil(B'/B)`` dispatches, the last padded
+with copies of its last item, and the padding is sliced off.  Per-item
+outputs do not depend on the batch in eval mode.  Dispatch is serialised
+on a lock (one card, one model).
+
+Restoring from a run directory, the request micro-batcher and export
+arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from .config import Config
+from .device import resolve_device
+from .nn.encoder import resolve_pooling, spatial_dim
+
+_OUTPUT_DOC = {"classify": "score (B, classes)",
+               "retrieve": "score (B, classes)"}
+
+
+def batch_buckets(max_batch: int) -> list:
+    """Power-of-2 batch buckets covering ``1..max_batch`` (ascending,
+    always ends exactly at ``max_batch``): 8 -> [1, 2, 4, 8];
+    6 -> [1, 2, 4, 6]."""
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    out = []
+    b = 1
+    while b < max_batch:
+        out.append(b)
+        b *= 2
+    out.append(max_batch)
+    return out
+
+
+def input_signature(cfg: Config, batch_size: Optional[int] = None):
+    """(name, shape, dtype) triples of the serving inputs for ``cfg``."""
+    B = batch_size or cfg.batch_size
+    D = spatial_dim(cfg)
+    return [("pc", (B, cfg.input_pc_num, D), "float32"),
+            ("sn", (B, cfg.input_pc_num, D), "float32"),
+            ("node", (B, cfg.node_num, D), "float32")]
+
+
+def build_serve_fn(model: nn.Module, cfg: Config) -> Callable:
+    """Eval-mode forward of a classify/retrieve model: (pc, sn, node)
+    tensors on the model's device -> score (B, classes)."""
+    if cfg.task not in _OUTPUT_DOC:
+        raise NotImplementedError(f"serving task {cfg.task!r} is not ported "
+                                  f"yet (have {sorted(_OUTPUT_DOC)})")
+    model.eval()
+
+    def serve(pc, sn, node):
+        with torch.inference_mode():
+            score, _ = model(pc, sn, node)
+        return score
+
+    return serve
+
+
+class ServingEngine:
+    """Request-level serving wrapper over a fixed-batch forward.
+
+    Construct with :meth:`from_model` (a built port model and a device).
+    ``fn`` takes one numpy array per input, each ``(B, *item)``, and
+    returns the output for those B items.
+    """
+
+    def __init__(self, fn: Callable, manifest: dict):
+        self._fn = fn
+        self.manifest = manifest
+        self._lock = threading.Lock()        # device dispatch
+        self._stats_lock = threading.Lock()  # traffic counters
+        self.requests = 0
+        self.items = 0
+        self.dispatches = 0
+        self.total_s = 0.0
+
+    # -- constructors -------------------------------------------------------
+
+    @classmethod
+    def from_model(cls, model: nn.Module, cfg: Config,
+                   device: str | torch.device = "cuda",
+                   batch_size: Optional[int] = None) -> "ServingEngine":
+        """Serve ``model`` (built for ``cfg``) on ``device`` at batch size
+        ``batch_size`` (default ``cfg.batch_size``).  Raises when
+        ``device`` is ``cuda`` and there is no card."""
+        dev = resolve_device(device)
+        model = model.to(dev)
+        B = batch_size or cfg.batch_size
+        serve = build_serve_fn(model, cfg)
+
+        def fn(*arrays):
+            tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                       for a in arrays]
+            return serve(*tensors).float().cpu().numpy()
+
+        manifest = {
+            "task": cfg.task,
+            "inputs": [{"name": n, "shape": list(s), "dtype": d}
+                       for n, s, d in input_signature(cfg, B)],
+            "output": _OUTPUT_DOC[cfg.task],
+            "platforms": [dev.type],
+            "device": str(dev),
+            "pooling": resolve_pooling(cfg, dev),
+            "classes": cfg.classes,
+            "source": "model",
+        }
+        return cls(fn, manifest)
+
+    # -- serving ------------------------------------------------------------
+
+    @property
+    def batch_size(self) -> int:
+        return self.manifest["inputs"][0]["shape"][0]
+
+    @property
+    def input_names(self) -> list:
+        return [i["name"] for i in self.manifest["inputs"]]
+
+    def predict(self, inputs: dict) -> np.ndarray:
+        """Run the model on named arrays; returns the stacked output.
+
+        ``inputs`` maps input name -> array of shape ``(B', *item)`` for
+        any ``B' >= 1`` (see the module doc for the chunk/pad semantics).
+        """
+        expect = self.manifest["inputs"]
+        missing = [i["name"] for i in expect if i["name"] not in inputs]
+        if missing:
+            raise ValueError(f"missing inputs {missing} "
+                             f"(want {self.input_names})")
+        arrays, B_req = [], None
+        for spec in expect:
+            try:
+                a = np.asarray(inputs[spec["name"]], spec["dtype"])
+            except (TypeError, ValueError) as e:
+                raise ValueError(f"input {spec['name']}: not convertible "
+                                 f"to {spec['dtype']}: {e}") from None
+            want = spec["shape"]
+            if a.ndim != len(want) or list(a.shape[1:]) != want[1:]:
+                raise ValueError(
+                    f"input {spec['name']}: expected shape "
+                    f"(B, {', '.join(map(str, want[1:]))}), "
+                    f"got {list(a.shape)}")
+            if B_req is None:
+                B_req = a.shape[0]
+            elif a.shape[0] != B_req:
+                raise ValueError(
+                    f"inconsistent batch sizes: {spec['name']} has "
+                    f"{a.shape[0]}, expected {B_req}")
+            arrays.append(a)
+        if not B_req:
+            raise ValueError("empty request batch")
+
+        t0 = time.perf_counter()
+        out = self._dispatch(arrays, B_req)
+        with self._stats_lock:
+            self.requests += 1
+            self.items += B_req
+            self.total_s += time.perf_counter() - t0
+        return out
+
+    def _dispatch(self, arrays: list, B_req: int) -> np.ndarray:
+        """Run validated arrays through the model (the chunk/pad core);
+        serialised on the device lock."""
+        B = self.batch_size
+        outs = []
+        with self._lock:
+            for s in range(0, B_req, B):
+                chunk = [a[s:s + B] for a in arrays]
+                n = chunk[0].shape[0]
+                if n < B:
+                    chunk = [np.concatenate(
+                        [c, np.repeat(c[-1:], B - n, axis=0)]) for c in chunk]
+                self.dispatches += 1
+                outs.append(np.asarray(self._fn(*chunk))[:n])
+        return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
+
+    def warmup(self) -> None:
+        """Run once on zeros so that the first request finds the kernels
+        built and loaded; the traffic counters are left as they were."""
+        zeros = {i["name"]: np.zeros(i["shape"], i["dtype"])
+                 for i in self.manifest["inputs"]}
+        before = (self.requests, self.items, self.dispatches, self.total_s)
+        self.predict(zeros)
+        (self.requests, self.items, self.dispatches, self.total_s) = before
+
+    def stats(self) -> dict:
+        return {
+            "task": self.manifest["task"],
+            "batch_size": self.batch_size,
+            "requests": self.requests,
+            "items": self.items,
+            "dispatches": self.dispatches,
+            "avg_ms_per_item": (round(self.total_s / self.items * 1e3, 3)
+                                if self.items else None),
+        }
