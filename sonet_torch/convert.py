@@ -1,4 +1,5 @@
-"""Carry weights between the JAX package and the port.
+"""Carry weights, batch statistics and gradients between the JAX package
+and the port.
 
 The JAX package keeps a model's variables as a nested tree; flattened
 with ``/`` its keys read like
@@ -78,19 +79,43 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> None:
         raise KeyError(f"model entries not set by the variables: {unset}")
 
 
+def _jax_key(tkey: str) -> tuple[str, bool]:
+    """``state_dict`` key -> (flattened JAX variable key, whether to
+    transpose)."""
+    *path, leaf = tkey.split(".")
+    if leaf.startswith("running_"):
+        return "/".join(["batch_stats", *path, leaf[len("running_"):]]), False
+    if leaf == "bias":
+        return "/".join(["params", *path, "bias"]), False
+    if path[-1].startswith("BatchNorm"):
+        return "/".join(["params", *path, "scale"]), False
+    return "/".join(["params", *path, "kernel"]), True
+
+
+def _to_numpy(t: torch.Tensor, transpose: bool) -> np.ndarray:
+    a = t.detach().cpu().float().numpy()
+    return np.ascontiguousarray(a.T if transpose else a)
+
+
 def to_jax_variables(model: nn.Module) -> dict[str, np.ndarray]:
-    """The converse: the model's weights as flattened JAX variable keys."""
+    """The converse: the model's weights and BatchNorm statistics as
+    flattened JAX variable keys."""
     out = {}
     for tkey, t in model.state_dict().items():
-        *path, leaf = tkey.split(".")
-        a = t.detach().cpu().float().numpy()
-        if leaf.startswith("running_"):
-            coll, jleaf = "batch_stats", leaf[len("running_"):]
-        elif leaf == "bias":
-            coll, jleaf = "params", "bias"
-        elif path[-1].startswith("BatchNorm"):
-            coll, jleaf = "params", "scale"
-        else:
-            coll, jleaf, a = "params", "kernel", a.T
-        out["/".join([coll, *path, jleaf])] = np.ascontiguousarray(a)
+        key, transpose = _jax_key(tkey)
+        out[key] = _to_numpy(t, transpose)
+    return out
+
+
+def gradients_to_jax(model: nn.Module) -> dict[str, np.ndarray]:
+    """The gradients held in the parameters' ``.grad``, under the same
+    ``params/...`` keys and layouts as ``to_jax_variables``, so they
+    compare with the JAX package's gradient tree flattened under
+    ``params``.  A parameter with no gradient (a bias that a BatchNorm
+    follows) reads zeros, as its cotangent is zero in the JAX package."""
+    out = {}
+    for tkey, p in model.named_parameters():
+        key, transpose = _jax_key(tkey)
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        out[key] = _to_numpy(g, transpose)
     return out

@@ -1,11 +1,14 @@
 """Task models (port of the JAX package's ``models.py``): encoder + head.
 
 The module tree keeps the JAX package's top-level split (``encoder`` /
-``classifier``), so per-subnetwork weights map one to one.  Only the
-classifier is ported so far; retrieval serves its scores as keys.
+``classifier``), so per-subnetwork weights and learning rates map one to
+one.  Only the classifier is ported so far; retrieval serves its scores as
+keys.  Train or eval follows ``nn.Module.training``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -25,10 +28,14 @@ class ClassifierModel(nn.Module):
         self.encoder = Encoder(cfg, generator)
         self.classifier = ClassifierHead(cfg, generator)
 
-    def forward(self, pc, sn, node, node_knn_I=None
+    def forward(self, pc, sn, node, node_knn_I=None, *,
+                epoch: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> tuple[torch.Tensor, EncoderOutput]:
-        enc = self.encoder(pc, sn, node, node_knn_I)
-        return self.classifier(enc.feature), enc
+        """``epoch`` drives the BatchNorm momentum decay and ``generator``
+        the dropout masks; both are read in training only."""
+        enc = self.encoder(pc, sn, node, node_knn_I, epoch=epoch)
+        return self.classifier(enc.feature, epoch, generator), enc
 
 
 _MODELS = {
@@ -42,7 +49,8 @@ def build_model(cfg: Config, device: str | torch.device = "cuda",
     """The model for ``cfg.task``, in eval mode on ``device``, with weights
     drawn from a ``torch.Generator`` seeded with ``seed`` (default
     ``cfg.seed``): He fan_in normal kernels, zero biases, unit BatchNorm.
-    Raises when ``device`` is ``cuda`` and there is no card."""
+    Raises when ``device`` is ``cuda`` and there is no card.  The train
+    entry point (``train.init_state``) switches it to train mode."""
     dev = resolve_device(device)
     if cfg.task not in _MODELS:
         raise NotImplementedError(

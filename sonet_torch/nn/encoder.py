@@ -1,10 +1,11 @@
-"""The shared SO-Net encoder (port of the JAX package's ``nn/encoder.py``,
-eval mode).
+"""The shared SO-Net encoder (port of the JAX package's ``nn/encoder.py``).
 
 Pipeline (channel-last): top-k point->node assignment, k-stacked points,
 cluster-mean node recentering, decentered PointResNet over kN points,
 segment-max node pooling, kNN aggregation over nodes, final PointNet,
-global max over nodes.
+global max over nodes with first-winner gradient routing.  Train or eval
+follows ``nn.Module.training``; ``epoch`` drives the BatchNorm momentum
+decay in training.
 
 With ``pooling="sorted_window"`` the stacked points are sorted by node
 once per forward, and pooling runs through the CUDA windowed segment-max
@@ -46,6 +47,13 @@ def compute_dtype(cfg: Config) -> Optional[torch.dtype]:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
 
 
+def layer_kw(cfg: Config) -> dict:
+    """The compute dtype and BatchNorm momentum options of every layer."""
+    return dict(compute_dtype=compute_dtype(cfg), momentum=cfg.bn_momentum,
+                bn_momentum_decay_step=cfg.bn_momentum_decay_step,
+                bn_momentum_decay=cfg.bn_momentum_decay)
+
+
 class EncoderOutput(NamedTuple):
     """What the encoder hands to the heads.  With the sorted pipeline
     (``perm is not None``) every per-point tensor is in node-sorted order;
@@ -75,7 +83,7 @@ class Encoder(nn.Module):
         self.cfg = cfg
         D = spatial_dim(cfg)
         kw = dict(activation=cfg.activation, normalization=cfg.normalization,
-                  compute_dtype=compute_dtype(cfg))
+                  **layer_kw(cfg))
         first_in = 2 * D if cfg.surface_normal else D
         self.first_pointnet = PointResNet(first_in, (64, 128, 256, 384),
                                           generator, **kw)
@@ -90,10 +98,12 @@ class Encoder(nn.Module):
 
     def forward(self, pc: torch.Tensor, sn: torch.Tensor | None,
                 node: torch.Tensor,
-                node_knn_I: torch.Tensor | None = None) -> EncoderOutput:
+                node_knn_I: torch.Tensor | None = None, *,
+                epoch: int | None = None) -> EncoderOutput:
         """pc (B, N, D) points; sn (B, N, D) normals or None; node
         (B, M, D) SOM nodes; node_knn_I (B, M, >=som_k) or None (computed
-        from the input nodes)."""
+        from the input nodes); epoch: the training epoch, for the
+        BatchNorm momentum decay."""
         cfg = self.cfg
         B, N, D = pc.shape
         M = node.shape[1]
@@ -149,7 +159,7 @@ class Encoder(nn.Module):
             first_in = torch.cat([x_decentered, sn_stack], -1)
         else:
             first_in = x_decentered
-        first_pn_out = self.first_pointnet(first_in)
+        first_pn_out = self.first_pointnet(first_in, epoch=epoch)
 
         # -- node pooling -----------------------------------------------------
         if sort_points:
@@ -166,17 +176,22 @@ class Encoder(nn.Module):
             else:
                 knn_I = node_knn_I[:, :, :cfg.som_k]
             knn_center, knn_feature = self.knnlayer(
-                som_node, pooled, knn_I, cfg.som_k_type)
+                som_node, pooled, knn_I, cfg.som_k_type, epoch=epoch)
             dt = torch.promote_types(knn_center.dtype, knn_feature.dtype)
             final_in = torch.cat([knn_center.to(dt), knn_feature.to(dt)], -1)
         else:
             knn_center = knn_feature = None
             dt = torch.promote_types(som_node.dtype, pooled.dtype)
             final_in = torch.cat([som_node.to(dt), pooled.to(dt)], -1)
-        final_pn_out = self.final_pointnet(final_in).float()
+        final_pn_out = self.final_pointnet(final_in, epoch=epoch).float()
 
-        # -- global max over nodes, in f32 -------------------------------------
-        feature = final_pn_out.amax(1)                 # (B, F)
+        # -- global max over nodes, in f32, with FIRST-WINNER gradient
+        # routing: exact ties across nodes are common (overlapping kNN
+        # neighbourhoods make whole node rows equal), and amax would split
+        # their gradient evenly where the JAX package and the reference
+        # send it all to the first winner.  argmax returns the first max.
+        am = final_pn_out.argmax(1, keepdim=True)      # (B, 1, F)
+        feature = torch.gather(final_pn_out, 1, am).squeeze(1)   # (B, F)
 
         return EncoderOutput(
             feature=feature, min_idx=min_idx, mask_row_max=mask_row_max,

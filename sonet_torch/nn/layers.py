@@ -1,5 +1,5 @@
 """Reusable network blocks, channel-last (port of the JAX package's
-``nn/layers.py``, eval mode).
+``nn/layers.py``).
 
 Shared MLPs are dense layers over the trailing channel axis of
 ``(B, N, C)``.  Submodules carry the JAX package's parameter names
@@ -11,9 +11,12 @@ input, kernel and bias are cast to it before the matmul and the bias add;
 BatchNorm normalises in float32 and casts back to the input's dtype.
 Parameters and BatchNorm statistics stay float32.
 
-Only eval mode is ported: train-mode BatchNorm statistics and the
-momentum decay arrive with training, ``InstanceNorm`` and ``UpConv`` with
-the slices that use them.
+Train or eval follows ``nn.Module.training``.  In training, BatchNorm
+normalises with the batch statistics and updates its running ones with
+torch-convention momentum and the reference's epoch momentum decay, and
+the bias of a dense layer that a BatchNorm follows gets no gradient
+(``stop_bias_grad``).  ``InstanceNorm`` and ``UpConv`` arrive with the
+slices that use them.
 """
 
 from __future__ import annotations
@@ -49,19 +52,29 @@ def he_normal_in_(weight: torch.Tensor, generator: torch.Generator) -> None:
 
 class Dense(nn.Module):
     """x @ kernel + bias over the trailing axis.  ``weight`` is (out, in),
-    the transpose of the JAX package's ``kernel``."""
+    the transpose of the JAX package's ``kernel``.
+
+    ``stop_bias_grad``: the bias gets no gradient (the JAX package's
+    ``DenseBN``).  A BatchNorm that follows subtracts the batch mean, which
+    cancels a per-channel bias exactly, so its true gradient is 0; autograd
+    would still give it summation noise, which Adam turns into steps of
+    about lr.  The forward add stays: eval-mode BatchNorm uses running
+    statistics, where the bias is live."""
 
     def __init__(self, in_features: int, features: int,
                  generator: torch.Generator,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 stop_bias_grad: bool = False):
         super().__init__()
         self.compute_dtype = compute_dtype
+        self.stop_bias_grad = stop_bias_grad
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features))
         he_normal_in_(self.weight, generator)
 
     def _params(self, dtype: torch.dtype):
-        return self.weight.to(dtype), self.bias.to(dtype)
+        b = self.bias.detach() if self.stop_bias_grad else self.bias
+        return self.weight.to(dtype), b.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # without a compute dtype the operands promote, as in the JAX
@@ -79,8 +92,10 @@ class ConcatDense(Dense):
 
     def __init__(self, in_features: Sequence[int], features: int,
                  generator: torch.Generator,
-                 compute_dtype: Optional[torch.dtype] = None):
-        super().__init__(sum(in_features), features, generator, compute_dtype)
+                 compute_dtype: Optional[torch.dtype] = None,
+                 stop_bias_grad: bool = False):
+        super().__init__(sum(in_features), features, generator, compute_dtype,
+                         stop_bias_grad)
         self.splits = tuple(in_features)
 
     def forward(self, *xs: torch.Tensor) -> torch.Tensor:
@@ -96,54 +111,96 @@ class ConcatDense(Dense):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the trailing channel axis, with the
-    running statistics as buffers."""
+    """BatchNorm over the trailing channel axis, with the running
+    statistics as buffers and the reference's epoch momentum decay.
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    Training: biased batch variance, two-pass below 8192 reduced rows
+    (stable where mean^2 >> var) and one-pass E[x^2] - E[x]^2 from 8192 on
+    (one read of the input), as in the JAX package; running statistics
+    ``r = (1 - m) r + m batch`` with the unbiased variance, where
+    ``m = max(momentum * decay^(epoch // step), 0.01)`` from epoch 1 on when
+    ``momentum_decay_step`` is set, else ``momentum``."""
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1,
+                 momentum_decay_step: Optional[int] = None,
+                 momentum_decay: float = 0.6):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
+        self.momentum_decay_step = momentum_decay_step
+        self.momentum_decay = momentum_decay
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def momentum_at(self, epoch: Optional[int]) -> float:
+        """The running-statistics momentum during ``epoch``."""
+        step = self.momentum_decay_step
+        if step is None or step <= 0 or epoch is None or epoch < 1:
+            return self.momentum
+        return max(self.momentum * self.momentum_decay ** (epoch // step),
+                   0.01)
+
+    def forward(self, x: torch.Tensor,
+                epoch: Optional[int] = None) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval()")
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps)
+            axes = tuple(range(x.dim() - 1))
+            n = math.prod(x.shape[:-1])
+            mean = xf.mean(axes)
+            if n < 8192:
+                var = (xf - mean).square().mean(axes)
+            else:
+                var = xf.square().mean(axes) - mean.square()
+            with torch.no_grad():
+                m = self.momentum_at(epoch)
+                unbiased = var * (n / max(n - 1, 1))
+                self.running_mean.mul_(1.0 - m).add_(m * mean)
+                self.running_var.mul_(1.0 - m).add_(m * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
 class PointLayer(nn.Module):
     """Dense -> [BatchNorm] -> [activation] over the trailing axis.  Given
     a sequence of input widths it acts on the virtual concatenation of as
-    many inputs (``ConcatDense``)."""
+    many inputs (``ConcatDense``).  ``momentum``, ``bn_momentum_decay_step``
+    and ``bn_momentum_decay`` configure the BatchNorm."""
 
     def __init__(self, in_features: int | Sequence[int], features: int,
                  generator: torch.Generator,
                  activation: Optional[str] = "relu",
                  normalization: Optional[str] = None,
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None,
+                 momentum: float = 0.1,
+                 bn_momentum_decay_step: Optional[int] = None,
+                 bn_momentum_decay: float = 0.6):
         super().__init__()
         if normalization not in (None, "batch"):
             raise NotImplementedError(f"normalization={normalization!r}")
+        bn = normalization == "batch"
         if isinstance(in_features, int):
             self.Dense_0 = Dense(in_features, features, generator,
-                                 compute_dtype)
+                                 compute_dtype, stop_bias_grad=bn)
         else:
             self.Dense_0 = ConcatDense(in_features, features, generator,
-                                       compute_dtype)
-        self.BatchNorm_0 = (BatchNorm(features) if normalization == "batch"
-                            else None)
+                                       compute_dtype, stop_bias_grad=bn)
+        self.BatchNorm_0 = (BatchNorm(features, momentum=momentum,
+                                      momentum_decay_step=bn_momentum_decay_step,
+                                      momentum_decay=bn_momentum_decay)
+                            if bn else None)
         self.compute_dtype = compute_dtype
         self.act = activation_fn(activation)
 
-    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+    def forward(self, *xs: torch.Tensor,
+                epoch: Optional[int] = None) -> torch.Tensor:
         x = self.Dense_0(*xs)
         if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x)
+            x = self.BatchNorm_0(x, epoch)
         return self.act(x)
 
 
@@ -153,12 +210,14 @@ def _add_layers(module: nn.Module, layers: Sequence[nn.Module]) -> None:
 
 
 class PointNetMLP(nn.Module):
-    """Stack of PointLayers; the last has no activation or normalization."""
+    """Stack of PointLayers; the last has no activation or normalization.
+    ``bn_kw`` (``momentum``, ``bn_momentum_decay_step``,
+    ``bn_momentum_decay``) goes to every PointLayer."""
 
     def __init__(self, in_features: int, out_channels: Sequence[int],
                  generator: torch.Generator, activation: str = "relu",
                  normalization: Optional[str] = "batch",
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, **bn_kw):
         super().__init__()
         n = len(out_channels)
         layers, cin = [], in_features
@@ -167,14 +226,15 @@ class PointNetMLP(nn.Module):
             layers.append(PointLayer(
                 cin, c, generator, activation=None if last else activation,
                 normalization=None if last else normalization,
-                compute_dtype=compute_dtype))
+                compute_dtype=compute_dtype, **bn_kw))
             cin = c
         _add_layers(self, layers)
         self.n = n
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                epoch: Optional[int] = None) -> torch.Tensor:
         for i in range(self.n):
-            x = getattr(self, f"PointLayer_{i}")(x)
+            x = getattr(self, f"PointLayer_{i}")(x, epoch=epoch)
         return x
 
 
@@ -185,9 +245,9 @@ class PointResNet(nn.Module):
     def __init__(self, in_features: int, out_channels: Sequence[int],
                  generator: torch.Generator, activation: str = "relu",
                  normalization: Optional[str] = "batch",
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, **bn_kw):
         super().__init__()
-        kw = dict(compute_dtype=compute_dtype)
+        kw = dict(compute_dtype=compute_dtype, **bn_kw)
         layers = [PointLayer(in_features, out_channels[0], generator,
                              activation, normalization, **kw)]
         cin = out_channels[0]
@@ -200,37 +260,41 @@ class PointResNet(nn.Module):
         _add_layers(self, layers)
         self.n = len(layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out0 = self.PointLayer_0(x)
+    def forward(self, x: torch.Tensor,
+                epoch: Optional[int] = None) -> torch.Tensor:
+        out0 = self.PointLayer_0(x, epoch=epoch)
         h = out0
         for i in range(1, self.n - 1):
-            h = getattr(self, f"PointLayer_{i}")(h)
-        return getattr(self, f"PointLayer_{self.n - 1}")(out0, h)
+            h = getattr(self, f"PointLayer_{i}")(h, epoch=epoch)
+        return getattr(self, f"PointLayer_{self.n - 1}")(out0, h, epoch=epoch)
 
 
 class KNNModule(nn.Module):
     """kNN aggregation over SOM nodes: gather K neighbours per node,
-    decenter their coordinates, shared MLP over (B, M, K, C'), max over K.
-    Every layer keeps its activation and normalization."""
+    decenter their coordinates (no gradient), shared MLP over
+    (B, M, K, C'), max over K.  Every layer keeps its activation and
+    normalization."""
 
     def __init__(self, coord_dim: int, in_features: int,
                  out_channels: Sequence[int], generator: torch.Generator,
                  activation: str = "relu",
                  normalization: Optional[str] = "batch",
-                 compute_dtype: Optional[torch.dtype] = None):
+                 compute_dtype: Optional[torch.dtype] = None, **bn_kw):
         super().__init__()
         layers, cin = [], coord_dim + in_features
         for c in out_channels:
             layers.append(PointLayer(cin, c, generator, activation,
-                                     normalization, compute_dtype))
+                                     normalization, compute_dtype, **bn_kw))
             cin = c
         _add_layers(self, layers)
         self.n = len(layers)
 
     def forward(self, coordinate: torch.Tensor, x: torch.Tensor,
-                knn_idx: torch.Tensor, center_type: str = "avg"):
+                knn_idx: torch.Tensor, center_type: str = "avg",
+                epoch: Optional[int] = None):
         """coordinate (B, M, D); x (B, M, C); knn_idx (B, M, K).
         Returns (neighbours' center (B, M, D), feature (B, M, out[-1]))."""
+        coordinate = coordinate.detach()
         neighbors = knn_gather(coordinate, knn_idx)       # (B, M, K, D)
         if center_type == "avg":
             center = neighbors.mean(2, keepdim=True)
@@ -243,5 +307,5 @@ class KNNModule(nn.Module):
         dt = torch.promote_types(decentered.dtype, x_neighbors.dtype)
         h = torch.cat([decentered.to(dt), x_neighbors.to(dt)], -1)
         for i in range(self.n):
-            h = getattr(self, f"PointLayer_{i}")(h)
+            h = getattr(self, f"PointLayer_{i}")(h, epoch=epoch)
         return center.squeeze(2), h.amax(2)

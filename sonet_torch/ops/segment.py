@@ -1,15 +1,22 @@
-"""Node pooling by scatter (port of the forward of the JAX package's
-``ops/segment.py``).
+"""Node pooling by scatter, with the matmul-routed gradient (port of the
+JAX package's ``ops/segment.py``).
 
 Empty-node semantics: an empty node takes the feature of stacked point 0,
-as the reference gathers with ``gather_index * mask_row_max``.  Only the
-forward is ported so far: the gradient routing (``route_max_grad``)
-comes with training.
+as the reference gathers with ``gather_index * mask_row_max``, and the
+gradient of that gather flows back to point 0.
+
+``segment_max`` is a ``torch.autograd.Function`` whose backward is
+``route_max_grad``: each output cotangent goes back to the winning
+point(s) through a winner-equality mask.  On exact ties the cotangent is
+split equally among the winners (sum-preserving), as in the JAX package.
+``segment_max_fast`` (``ops/segment_fast.py``) shares the backward.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .pairwise import one_hot
 
 
 def segment_counts(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -20,14 +27,90 @@ def segment_counts(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return (seg_ids[..., None] == classes).sum(1, dtype=torch.int32)
 
 
-def segment_max(data: torch.Tensor, seg_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """Segment max by scatter: data (B, N, C), seg_ids (B, N) -> (B, M, C)
-    in ``data.dtype``; an empty node takes data[:, 0]."""
+def _take_rows(table: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
+    """table (B, M, C) rows by id -> (B, N, C); an id outside ``[0, M)``
+    reads a zero row, as its zero one-hot row does in the JAX package."""
+    M, C = table.shape[1], table.shape[2]
+    inside = (seg_ids >= 0) & (seg_ids < M)
+    idx = torch.where(inside, seg_ids, 0).long()[..., None].expand(-1, -1, C)
+    rows = torch.gather(table, 1, idx)
+    return rows * inside[..., None].to(rows.dtype)
+
+
+def route_max_grad(data: torch.Tensor, seg_ids: torch.Tensor,
+                   out: torch.Tensor, counts: torch.Tensor, g: torch.Tensor,
+                   point0_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Gradient of a segment max with respect to ``data`` (B, N, C), given
+    the forward's output ``out`` (B, M, C) in ``data.dtype``, the node
+    ``counts`` (B, M) and the output cotangent ``g`` (B, M, C).
+
+    The winner mask is ``data == out`` at each point's node: exact, since
+    ``out`` holds values taken from ``data``.  Ties split the cotangent
+    equally (tie counts rounded before the division).  An empty node
+    forwarded the feature at ``point0_idx`` (B,) (default position 0), so
+    its cotangent goes there.  bf16 data routes through bf16 one-hot
+    products (exact: one 1.0 per row), float32 data through gathers.
+    """
+    M = out.shape[1]
+    bf16 = data.dtype == torch.bfloat16
+    if bf16:
+        onehot = one_hot(seg_ids, M, torch.bfloat16)          # (B, N, M)
+        out_pp = torch.bmm(onehot, out.to(torch.bfloat16))
+    else:
+        onehot = one_hot(seg_ids, M, torch.float32)
+        out_pp = _take_rows(out, seg_ids)
+    # 0/1 entries are exact in bf16, halving the (B, N, C) mask traffic
+    eq = (data == out_pp).to(data.dtype)
+    # tie counts per (node, channel), summed in float32 and rounded so
+    # that the division below is exact
+    ties = torch.round(torch.bmm(onehot.float().transpose(1, 2), eq.float()))
+    empty = (counts == 0)[..., None]                          # (B, M, 1)
+    g = g.float()
+    # divide per node before routing: one (B, N, C) product, not two
+    ratio = torch.where(empty, 0.0, g) / torch.clamp_min(ties, 1.0)
+    if bf16:
+        ratio_pp = torch.bmm(onehot, ratio.to(torch.bfloat16))  # bf16 out
+    else:
+        ratio_pp = _take_rows(ratio, seg_ids)
+    grad = eq * ratio_pp
+    # empty nodes forwarded the point-0 feature: their cotangent goes there
+    g_empty = torch.where(empty, g, 0.0).sum(1).to(grad.dtype)  # (B, C)
+    batch = torch.arange(data.shape[0], device=data.device)
+    p0 = (torch.zeros_like(batch) if point0_idx is None
+          else point0_idx.long())
+    grad[batch, p0] += g_empty
+    return grad.to(data.dtype)
+
+
+def _segment_max_forward(data, seg_ids, num_segments):
+    """Scatter max (B, M, C) in ``data.dtype``, empty node -> data[:, 0],
+    and the int32 counts."""
     B, N, C = data.shape
     idx = seg_ids.long()[..., None].expand(B, N, C)
     out = torch.zeros(B, num_segments, C, dtype=data.dtype, device=data.device)
     # include_self=False: empty nodes keep the 0 they were cleared to
     out = out.scatter_reduce(1, idx, data, reduce="amax", include_self=False)
-    empty = (segment_counts(seg_ids, num_segments) == 0)[..., None]
-    return torch.where(empty, data[:, 0:1, :], out)
+    counts = segment_counts(seg_ids, num_segments)
+    empty = (counts == 0)[..., None]
+    return torch.where(empty, data[:, 0:1, :], out), counts
+
+
+class _SegmentMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, seg_ids, num_segments):
+        out, counts = _segment_max_forward(data, seg_ids, num_segments)
+        ctx.save_for_backward(data, seg_ids, out, counts)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, seg_ids, out, counts = ctx.saved_tensors
+        return route_max_grad(data, seg_ids, out, counts, g), None, None
+
+
+def segment_max(data: torch.Tensor, seg_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Segment max by scatter: data (B, N, C), seg_ids (B, N) -> (B, M, C)
+    in ``data.dtype``; an empty node takes data[:, 0].  Differentiable in
+    ``data`` through ``route_max_grad``."""
+    return _SegmentMax.apply(data, seg_ids, num_segments)

@@ -166,8 +166,12 @@ def test_batchnorm_eval_matches_formula():
     ref = ((x.float() - bn.running_mean) / torch.sqrt(bn.running_var + 1e-5)
            * bn.weight + bn.bias).to(torch.bfloat16)
     torch.testing.assert_close(y, ref, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError):
-        bn.train()(x)
+    # train mode normalises with the batch's own (biased) statistics
+    xf = x.float()
+    mean, var = xf.mean(0), xf.var(0, unbiased=False)
+    ref_train = (((xf - mean) / torch.sqrt(var + 1e-5)) * bn.weight
+                 + bn.bias).to(torch.bfloat16)
+    torch.testing.assert_close(bn.train()(x), ref_train, rtol=1e-2, atol=1e-2)
 
 
 # ---------------------------------------------------------------------------
