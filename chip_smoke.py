@@ -11,9 +11,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 3. kernels: each kernel against its plain PyTorch version at the shapes
    the main path gives it and on edge cases (exact equality), with the
    kernel's, the plain version's and, where one exists, one library
-   call's time (CUDA events, median over repeats) beside the kernel's
-   bound.  Kernel 2 (``segment_argmax``) is on no path of the model and
-   is held here only, also against kernel 1's values;
+   call's time beside the kernel's bound.  A kernel's time is read twice:
+   by CUDA events around launches made from Python (median over
+   repeats), which a slow host can floor, and by replaying a CUDA graph
+   of the captured launches, which it cannot.  Kernel 1
+   (``segment_max_window``) is also read from a torch.profiler trace, its
+   fill and its main kernel apart, and timed on the float32 and the B=64
+   inputs; each of its cases must take the kernel (bulk or direct) that
+   its shape and alignment name.  Kernel 2 (``segment_argmax``) is on no
+   path of the model and is held here only, also against kernel 1's
+   values;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
    width, seeded random weights) served through ``ServingEngine`` on the
    card for requests of 1, 8 and 13 clouds, with every kernel's launch
@@ -105,6 +112,68 @@ def time_ms(fn, reps: int, inner: int = 1) -> float:
     return statistics.median(times)
 
 
+def time_graph_ms(fn, reps: int, inner: int = 20) -> float:
+    """Median over ``reps`` replays of a CUDA graph that holds ``inner``
+    calls of ``fn``, per call.  The host starts one replay and the card
+    runs the captured launches back to back, so a slow host cannot floor
+    the reading as it can in ``time_ms``."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_times_ms(fn, calls: int, first: str, second: str) -> dict:
+    """Device durations from torch.profiler over ``calls`` calls of ``fn``,
+    which launches a kernel whose name contains ``first`` and then one
+    whose name contains ``second``: the median duration of each, and the
+    median idle gap between the end of the first and the start of the
+    second, in ms.  Raises if the trace does not hold ``calls`` of each."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and (first in e.name or second in e.name))
+    a = [(s, t) for s, t, n in spans if first in n]
+    b = [(s, t) for s, t, n in spans if first not in n]
+    if len(a) != calls or len(b) != calls:
+        raise AssertionError(f"the profiler's trace holds {len(a)} {first} "
+                             f"and {len(b)} {second} kernels, want {calls} "
+                             f"of each")
+    med = statistics.median
+    return {first: med(t - s for s, t in a) / 1e3,
+            second: med(t - s for s, t in b) / 1e3,
+            "gap": med(y[0] - x[1] for x, y in zip(a, b)) / 1e3}
+
+
 def phase_device():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -156,13 +225,149 @@ def phase_kernels():
             _check_segment_argmax(torch, gen, ids, M)]
 
 
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` in microseconds: the host clock
+    around ``calls`` calls made without waiting for the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def kernel1_cases(torch, gen, dev):
+    """Edge cases for kernel 1 as (name, data, ids, M, path): ``path`` is
+    the kernel the case must take, "bulk" or "direct".  At C = 384 a tile
+    of the bulk kernel is 32 rows in bf16 and 16 in f32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def rand_ids(shape, lo, hi, sort=False):
+        i = torch.randint(lo, hi, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        return torch.sort(i, dim=1).values.contiguous() if sort else i
+
+    def const_ids(per_cloud, n):
+        i = torch.tensor(per_cloud, dtype=torch.int32, device=dev)
+        return i[:, None].expand(len(per_cloud), n).contiguous()
+
+    cases = [
+        # a run longer than any tile, the same id on both sides of a cloud
+        # boundary, and all nodes but one empty
+        ("one node a cloud, bf16", rand((3, 1000, 384), bf16),
+         const_ids([5, 5, 63], 1000), 64, "bulk"),
+        ("N=7 below one tile, bf16", rand((3, 7, 384), bf16),
+         rand_ids((3, 7), 0, 8, sort=True), 8, "bulk"),
+        ("N=7 below one tile, f32", rand((3, 7, 384), f32),
+         rand_ids((3, 7), 0, 8, sort=True), 8, "bulk"),
+        # every run is one tile long: run, tile and cloud boundaries meet
+        ("N=640, runs of one tile, bf16", rand((2, 640, 384), bf16),
+         (torch.arange(640, device=dev, dtype=torch.int32) // 32)
+         .expand(2, 640).contiguous(), 20, "bulk"),
+        ("N=640, runs of one tile, f32", rand((2, 640, 384), f32),
+         (torch.arange(640, device=dev, dtype=torch.int32) // 16)
+         .expand(2, 640).contiguous(), 40, "bulk"),
+        ("N=640 sorted, bf16", rand((2, 640, 384), bf16),
+         rand_ids((2, 640), 0, 64, sort=True), 64, "bulk"),
+        ("unsorted, bf16", rand((2, 1000, 384), bf16),
+         rand_ids((2, 1000), 0, 64), 64, "bulk"),
+        ("unsorted, f32", rand((2, 1000, 384), f32),
+         rand_ids((2, 1000), 0, 64), 64, "bulk"),
+        ("ids outside [0, M) sorted, bf16", rand((2, 1000, 384), bf16),
+         rand_ids((2, 1000), -3, 20, sort=True), 16, "bulk"),
+        ("ids outside [0, M) unsorted, f32", rand((2, 1000, 384), f32),
+         rand_ids((2, 1000), -3, 20), 16, "bulk"),
+        # 3003 rows: the last tile is partial and its ids no 16-byte multiple
+        ("ragged N=1001, bf16", rand((3, 1001, 384), bf16),
+         rand_ids((3, 1001), 0, 16, sort=True), 16, "bulk"),
+        ("narrow rows C=128, bf16", rand((4, 999, 128), bf16),
+         rand_ids((4, 999), 0, 16, sort=True), 16, "bulk"),
+        ("wide rows C=512, f32", rand((2, 333, 512), f32),
+         rand_ids((2, 333), 0, 16, sort=True), 16, "bulk"),
+        ("rows over 2048 bytes C=2048, bf16", rand((2, 300, 2048), bf16),
+         rand_ids((2, 300), 0, 16, sort=True), 16, "direct"),
+        ("rows under 256 bytes C=64, bf16", rand((2, 1000, 64), bf16),
+         rand_ids((2, 1000), 0, 16, sort=True), 16, "direct"),
+    ]
+    # zeros of both signs and -inf: a node of -inf alone reads -3e38
+    data = rand((2, 640, 384), bf16)
+    seg = rand_ids((2, 640), 0, 8, sort=True)
+    data[seg == 1] = float("-inf")
+    data[seg == 2] = -0.0
+    data[seg == 3] = torch.where(rand((2, 640, 384), f32) > 0, 0.0, -0.0).to(
+        bf16)[seg == 3]
+    data[:, ::5, ::3] = float("-inf")
+    cases.append(("zeros of both signs and -inf, bf16", data, seg, 8, "bulk"))
+    cases.append(("zeros of both signs and -inf, f32", data.float(), seg, 8,
+                  "bulk"))
+    # views that start off a 16-byte boundary: data (direct kernel), then
+    # ids (the bulk kernel's ids go by plain loads)
+    flat = rand((2 * 500 * 384 + 1,), bf16)
+    cases.append(("unaligned data view, bf16", flat[1:].view(2, 500, 384),
+                  rand_ids((2, 500), 0, 16, sort=True), 16, "direct"))
+    flat_ids = rand_ids((1, 2 * 500 + 1), 0, 16, sort=True)[0]
+    cases.append(("unaligned ids view, bf16", rand((2, 500, 384), bf16),
+                  flat_ids[1:].view(2, 500), 16, "bulk"))
+    return cases
+
+
+def _plain_by_clouds(plain, data, seg, m, clouds=8):
+    """The plain version over ``clouds`` clouds at a time: its masked max
+    holds a (clouds, N, 8, C) float32 temporary."""
+    import torch
+    return torch.cat([plain(data[b:b + clouds], seg[b:b + clouds], m)
+                      for b in range(0, data.shape[0], clouds)])
+
+
+def _time_kernel1(torch, data, ids, M):
+    """Kernel 1 at one shape: event and graph times of the wrapper, the
+    device durations of its two kernels, and the bound."""
+    from sonet_torch.ops.cuda.segment_max_window import windowed_vals
+
+    def fn():
+        return windowed_vals(data, ids, M)
+
+    B, _, C = data.shape
+    nbytes = (data.numel() * data.element_size() + ids.numel() * 4
+              + B * M * C * 4)
+    bound_ms, bound_by = _bound(nbytes, data.numel())
+    t = {"event_ms": time_ms(fn, reps=30, inner=20),
+         "graph_ms": time_graph_ms(fn, reps=30, inner=20),
+         "bound_ms": bound_ms, "bound_by": bound_by, "nbytes": nbytes}
+    dev = device_times_ms(fn, 20, "fill_empty", "segment_max_window_bulk")
+    t.update(fill_ms=dev["fill_empty"], gap_ms=dev["gap"],
+             main_ms=dev["segment_max_window_bulk"])
+    log(f"segment_max_window at {tuple(data.shape)} "
+        f"{str(data.dtype).split('.')[-1]}, M={M}: {t['event_ms']:.4f} ms by "
+        f"events around launches from Python, {t['graph_ms']:.4f} ms by graph "
+        f"replay; device durations: fill {t['fill_ms']:.4f} ms, gap "
+        f"{t['gap_ms']:.4f} ms, main kernel {t['main_ms']:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s): {bound_ms / t['graph_ms']:.1%} of "
+        f"bound by graph replay, {bound_ms / t['main_ms']:.1%} for the main "
+        f"kernel alone")
+    return t
+
+
 def _check_segment_max_window(torch, gen, ids, M):
-    """Kernel 1 on the flagship bf16 and f32 inputs and edge cases."""
+    """Kernel 1 on the flagship inputs (bf16 and f32 at B=8, bf16 at B=64)
+    and edge cases, each equal to the plain version and on the kernel its
+    shape and alignment name; then timed."""
+    import ctypes
+    from sonet_torch.ops import cuda
     from sonet_torch.ops.cuda.segment_max_window import (
-        windowed_vals, windowed_vals_plain)
+        kernel_path, windowed_vals, windowed_vals_plain)
     dev = ids.device
     B, kN = ids.shape
     C = 384
+    c_path = cuda.load("segment_max_window").sonet_segment_max_window_bulk_path
+    c_path.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -175,48 +380,72 @@ def _check_segment_max_window(torch, gen, ids, M):
     ids_empty = torch.randint(0, 14, (2, 500), generator=gen, device=dev,
                               dtype=torch.int32)
     ids_empty[ids_empty == 3] = 2                 # node 3 empty; 14..19 empty
+    ids64 = _flagship_ids(torch, 64, kN // 3, M, 3, gen, dev)
     cases = [
-        ("flagship bf16 sorted", rand((B, kN, C), torch.bfloat16), ids, M),
-        ("flagship f32 sorted", rand((B, kN, C), torch.float32), ids, M),
-        ("unsorted f32", rand((2, 1000, 96), torch.float32), ids_small, 16),
+        ("flagship bf16 sorted", rand((B, kN, C), torch.bfloat16), ids, M,
+         "bulk"),
+        ("flagship f32 sorted", rand((B, kN, C), torch.float32), ids, M,
+         "bulk"),
+        ("flagship B=64 bf16 sorted", rand((64, kN, C), torch.bfloat16),
+         ids64, M, "bulk"),
+        ("unsorted f32", rand((2, 1000, 96), torch.float32), ids_small, 16,
+         "bulk"),
         ("ragged N=1001, odd C=33, bf16",
-         rand((3, 1001, 33), torch.bfloat16), ids_ragged, 16),
-        ("empty nodes f32", rand((2, 500, 128), torch.float32), ids_empty, 20),
-    ]
+         rand((3, 1001, 33), torch.bfloat16), ids_ragged, 16, "direct"),
+        ("empty nodes f32", rand((2, 500, 128), torch.float32), ids_empty, 20,
+         "bulk"),
+    ] + kernel1_cases(torch, gen, dev)
     max_err = 0.0
-    for name, data, seg, m in cases:
+    for name, data, seg, m, want_path in cases:
+        path = kernel_path(data)
+        in_c = "bulk" if c_path(data.data_ptr(), int(
+            data.dtype == torch.bfloat16), data.shape[2]) else "direct"
+        if not path == in_c == want_path:
+            raise AssertionError(f"segment_max_window [{name}]: kernel_path "
+                                 f"says {path}, the library {in_c}, want "
+                                 f"{want_path}")
         got = windowed_vals(data, seg, m)
         torch.cuda.synchronize()
-        want = windowed_vals_plain(data, seg, m)
+        want = _plain_by_clouds(windowed_vals_plain, data, seg, m)
         same = bool((got == want).all())
+        # -inf never reaches the output, so the difference is finite
         err = float((got - want).abs().max())
         max_err = max(max_err, err)
-        log(f"kernel segment_max_window [{name}] {tuple(data.shape)} M={m}: "
-            f"{'equal' if same else 'DIFFERENT'} (max abs err {err})")
+        log(f"kernel segment_max_window [{name}] {tuple(data.shape)} M={m}, "
+            f"{path} kernel: {'equal' if same else 'DIFFERENT'} (max abs err "
+            f"{err})")
         if not same:
             raise AssertionError(f"segment_max_window differs from its plain "
                                  f"version on {name}")
 
-    data = cases[0][1]
+    data, data_f32, data64 = cases[0][1], cases[1][1], cases[2][1]
+    t = _time_kernel1(torch, data, ids, M)
+    t_f32 = _time_kernel1(torch, data_f32, ids, M)
+    t_b64 = _time_kernel1(torch, data64, ids64, M)
+    host_us = host_us_per_call(lambda: windowed_vals(data, ids, M))
     base = torch.empty((B, M, C), dtype=data.dtype, device=dev)
     idx = ids.long()[..., None].expand(B, kN, C).contiguous()
-    ms = time_ms(lambda: windowed_vals(data, ids, M), reps=30, inner=20)
     plain_ms = time_ms(lambda: windowed_vals_plain(data, ids, M), reps=5)
     library_ms = time_ms(lambda: base.scatter_reduce(
         1, idx, data, reduce="amax", include_self=False), reps=30, inner=20)
-    nbytes = (data.numel() * data.element_size() + ids.numel() * 4
-              + B * M * C * 4)
-    bound_ms, bound_by = _bound(nbytes, data.numel())
-    log(f"segment_max_window at {tuple(data.shape)} bf16, M={M}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_reduce "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB "
-        f"at {HBM_BYTES_PER_S / 1e12} TB/s), {bound_ms / ms:.1%} of bound")
+    log(f"segment_max_window at {tuple(data.shape)} bf16, M={M}: the wrapper "
+        f"takes the host {host_us:.2f} us a call; plain {plain_ms:.4f} ms, "
+        f"scatter_reduce {library_ms:.4f} ms")
     return {"name": "segment_max_window", "route": "cuda",
             "source": "sonet_torch/csrc/segment_max_window.cu",
             "replaces": "sonet_tpu/ops/pallas/segment_max_window.py:127",
-            "launches": None, "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "launches": None, "max_abs_err": max_err, "ms": t["event_ms"],
+            "plain_ms": plain_ms, "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": library_ms,
+            "graph_ms": t["graph_ms"], "fill_device_ms": t["fill_ms"],
+            "gap_device_ms": t["gap_ms"], "main_device_ms": t["main_ms"],
+            "host_us_per_call": host_us,
+            "f32_ms": t_f32["event_ms"], "f32_graph_ms": t_f32["graph_ms"],
+            "f32_main_device_ms": t_f32["main_ms"],
+            "f32_bound_ms": t_f32["bound_ms"],
+            "b64_ms": t_b64["event_ms"], "b64_graph_ms": t_b64["graph_ms"],
+            "b64_main_device_ms": t_b64["main_ms"],
+            "b64_bound_ms": t_b64["bound_ms"]}
 
 
 def _check_segment_argmax(torch, gen, ids, M):
@@ -299,19 +528,22 @@ def _check_segment_argmax(torch, gen, ids, M):
         f"{int(full.sum())} non-empty (b, node, channel) entries")
 
     ms = time_ms(lambda: segment_argmax(flagship, ids, M), reps=30, inner=20)
+    graph_ms = time_graph_ms(lambda: segment_argmax(flagship, ids, M),
+                             reps=30, inner=20)
     plain_ms = time_ms(lambda: segment_argmax_plain(flagship, ids, M), reps=5)
     nbytes = flagship.numel() * 4 + ids.numel() * 4 + B * M * C * 4
     bound_ms, bound_by = _bound(nbytes, flagship.numel())
     log(f"segment_argmax at {tuple(flagship.shape)} f32, M={M}: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, no library call, bound "
-        f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
-        f"{HBM_BYTES_PER_S / 1e12} TB/s), {bound_ms / ms:.1%} of bound")
+        f"{ms:.4f} ms by events, {graph_ms:.4f} ms by graph replay, plain "
+        f"{plain_ms:.4f} ms, no library call, bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12} TB/s), "
+        f"{bound_ms / graph_ms:.1%} of bound by graph replay")
     return {"name": "segment_argmax", "route": "cuda",
             "source": "sonet_torch/csrc/segment_argmax.cu",
             "replaces": "sonet_tpu/ops/pallas/segment_argmax.py:113",
             "launches": None, "max_abs_err": max_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": None, "graph_ms": graph_ms,
             "note": "on no path of the model; held in phase 3 only"}
 
 

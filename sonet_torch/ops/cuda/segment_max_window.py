@@ -6,6 +6,12 @@ PyTorch version.
 ``windowed_vals`` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises; it never falls back.
 ``windowed_vals.launches`` counts the kernel's launches.
+
+The source holds two kernels for the one function.  ``kernel_path`` says
+which one an input takes, by its shape and alignment alone: ``"bulk"``
+(persistent blocks fed by bulk asynchronous copies through a ring in
+shared memory; the main path's inputs take it) or ``"direct"`` (loads
+straight from global memory, for every other input).
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from . import load
 NEG = -3.0e38
 _BLOCK_M = 8          # nodes per pass of the plain version
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_BULK_ROW_BYTES = (256, 2048)     # a row the bulk kernel takes, in bytes
 _fn = None
 
 
@@ -45,13 +52,27 @@ def windowed_vals_plain(data: torch.Tensor, seg_ids: torch.Tensor,
     return out.clamp_min_(NEG)
 
 
+def kernel_path(data: torch.Tensor) -> str:
+    """Which kernel ``windowed_vals`` launches for ``data`` (B, N, C) on
+    the card: ``"bulk"`` if a row is a multiple of 16 bytes between 256
+    and 2048 and the storage starts on a 16-byte boundary, as a bulk
+    asynchronous copy needs, else ``"direct"``.  The same rule as
+    ``bulk_path`` in ``csrc/segment_max_window.cu``; nothing else, and no
+    error caught, chooses."""
+    row = data.shape[-1] * data.element_size()
+    lo, hi = _BULK_ROW_BYTES
+    aligned = row % 16 == 0 and data.data_ptr() % 16 == 0
+    return "bulk" if aligned and lo <= row <= hi else "direct"
+
+
 def _kernel():
     global _fn
     if _fn is None:
         fn = load("segment_max_window").sonet_segment_max_window
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn = fn
     return _fn
@@ -85,15 +106,16 @@ def windowed_vals(data: torch.Tensor, seg_ids: torch.Tensor,
         raise ValueError("windowed_vals: data and seg_ids must be contiguous")
     B, N, C = data.shape
     M = int(num_segments)
-    if B > 65535 or N > 64 * 65535 or max(C, M) >= 2 ** 31 or M < 0:
+    # the kernels index rows (B * N) and channels with 32-bit ints
+    if B * N >= 2 ** 31 or C >= 2 ** 24 or not 0 <= M < 2 ** 31:
         raise ValueError(f"windowed_vals: B={B}, N={N}, C={C}, M={M} out of "
                          "the kernel's range")
     out = torch.empty((B, M, C), dtype=torch.float32, device=data.device)
-    fn = _kernel()
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(data.data_ptr(), _DTYPE_CODE[data.dtype], seg_ids.data_ptr(),
-                 out.data_ptr(), B, N, C, M, stream)
+    # the C function switches to the tensors' device for its launches
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    err = _kernel()(data.data_ptr(), _DTYPE_CODE[data.dtype],
+                    seg_ids.data_ptr(), out.data_ptr(), B, N, C, M,
+                    data.device.index, stream)
     if err != 0:
         raise RuntimeError(f"segment_max_window kernel launch failed: "
                            f"cudaError {err}")

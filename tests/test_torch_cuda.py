@@ -5,10 +5,16 @@ runs where only PyTorch is installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (the edge cases it holds the kernel to)
 from sonet_torch import config, train
 from sonet_torch.models import build_model
 from sonet_torch.ops.cuda import segment_argmax as sam
@@ -22,6 +28,54 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bulk_kernel_on_two_tiles(cuda_device, dtype):
+    # the smallest input that refills nothing and still crosses a tile
+    rows = 2 * (24576 // (384 * torch.empty(0, dtype=dtype).element_size()))
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    data = torch.randn((1, rows, 384), generator=gen,
+                       device=cuda_device).to(dtype)
+    ids = torch.sort(torch.randint(0, 4, (1, rows), generator=gen,
+                                   device=cuda_device, dtype=torch.int32),
+                     dim=1).values
+    assert smw.kernel_path(data) == "bulk"
+    got = smw.windowed_vals(data, ids, 4)
+    torch.cuda.synchronize()
+    assert bool((got == smw.windowed_vals_plain(data, ids, 4)).all())
+
+
+def test_kernel_edge_cases_equal_plain(cuda_device):
+    """One node a cloud, N below and at a multiple of a tile, more blocks
+    than tiles, unsorted and out-of-range ids on the bulk kernel, run,
+    tile and cloud boundaries that meet, zeros of both signs and -inf,
+    unaligned views: each on the kernel its shape names, each ``==``."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    failed = []
+    for name, data, ids, m, path in chip_smoke.kernel1_cases(
+            torch, gen, cuda_device):
+        assert smw.kernel_path(data) == path, name
+        got = smw.windowed_vals(data, ids, m)
+        torch.cuda.synchronize()
+        if not bool((got == smw.windowed_vals_plain(data, ids, m)).all()):
+            failed.append(name)
+    assert not failed
+
+
+def test_kernel_equals_plain_at_b64(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    data = torch.randn((64, 15000, 384), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    ids = torch.sort(torch.randint(0, 64, (64, 15000), generator=gen,
+                                   device=cuda_device, dtype=torch.int32),
+                     dim=1).values
+    assert smw.kernel_path(data) == "bulk"
+    got = smw.windowed_vals(data, ids, 64)
+    torch.cuda.synchronize()
+    for b in range(0, 64, 8):
+        want = smw.windowed_vals_plain(data[b:b + 8], ids[b:b + 8], 64)
+        assert bool((got[b:b + 8] == want).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

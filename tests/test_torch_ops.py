@@ -216,6 +216,113 @@ class TestWindowedVals:
         assert tsmw.windowed_vals.launches == 0
 
 
+def _adversarial_case(name):
+    """Small inputs shaped like the cases the CUDA kernel is held to on
+    the card (``chip_smoke.kernel1_cases``), as (data, ids, M); the JAX
+    kernel runs them with chunks of 16 points."""
+    rs = np.random.RandomState(11)
+    if name == "one_node_a_cloud":       # the same id across a cloud boundary
+        ids = np.repeat(np.array([[5], [5], [7]], np.int32), 50, axis=1)
+        return rs.randn(3, 50, 12).astype(np.float32), ids, 8
+    if name == "n_below_a_chunk":
+        return (rs.randn(3, 7, 12).astype(np.float32),
+                np.sort(rs.randint(0, 8, (3, 7)), axis=1).astype(np.int32), 8)
+    if name == "runs_of_one_chunk":      # run, chunk and cloud edges meet
+        ids = np.tile((np.arange(64) // 16).astype(np.int32), (2, 1))
+        return rs.randn(2, 64, 12).astype(np.float32), ids, 4
+    if name == "unsorted":
+        return (rs.randn(2, 80, 12).astype(np.float32),
+                rs.randint(0, 8, (2, 80)).astype(np.int32), 8)
+    if name == "ids_past_m_sorted":
+        return (rs.randn(2, 80, 12).astype(np.float32),
+                np.sort(rs.randint(0, 12, (2, 80)), axis=1).astype(np.int32),
+                8)
+    if name == "ids_past_m_unsorted":
+        return (rs.randn(2, 80, 12).astype(np.float32),
+                rs.randint(0, 12, (2, 80)).astype(np.int32), 8)
+    if name == "ragged_n":
+        return (rs.randn(3, 37, 12).astype(np.float32),
+                np.sort(rs.randint(0, 8, (3, 37)), axis=1).astype(np.int32), 8)
+    assert name == "zeros_and_neg_inf"
+    data = rs.randn(2, 64, 12).astype(np.float32)
+    ids = np.sort(rs.randint(0, 8, (2, 64)), axis=1).astype(np.int32)
+    data[ids == 1] = -np.inf               # a node of -inf alone: -3e38
+    data[ids == 2] = -0.0
+    data[ids == 3] = np.where(rs.randn(2, 64, 12) > 0, 0.0, -0.0)[ids == 3]
+    data[:, ::5, ::3] = -np.inf
+    return data, ids, 8
+
+
+ADVERSARIAL = ["one_node_a_cloud", "n_below_a_chunk", "runs_of_one_chunk",
+               "unsorted", "ids_past_m_sorted", "ids_past_m_unsorted",
+               "ragged_n", "zeros_and_neg_inf"]
+
+
+class TestWindowedValsAdversarial:
+    """The inputs that are hard for the CUDA kernel's ring of tiles, at a
+    small size: the plain version (what ``windowed_vals`` runs on the CPU)
+    equals the JAX package's Pallas kernel (interpret mode) exactly."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("name", ADVERSARIAL)
+    def test_matches_pallas(self, name, dtype):
+        data, ids, M = _adversarial_case(name)
+        want = np.asarray(j_windowed_vals(
+            jnp.asarray(data, dtype), ids, M, window=8, block_n=16,
+            block_c=12, interpret=True))
+        got = tops.windowed_vals(_t(data).to(_tdt(dtype)), _t(ids), M).numpy()
+        np.testing.assert_array_equal(got, want)     # -0.0 == 0.0
+        assert (got >= np.float32(-3e38)).all()      # -inf never comes out
+        if name == "zeros_and_neg_inf":
+            assert (ids == 1).any()
+            assert (got[:, 1] == np.float32(-3e38)).all()
+
+    def test_negative_ids_ignored(self):
+        data, ids, M = _adversarial_case("unsorted")
+        bad = ids.copy()
+        bad[:, ::3] = -2
+        got = tops.windowed_vals(_t(data), _t(bad), M).numpy()
+        ref = np.full((2, M, 12), np.float32(-3e38))
+        for b in range(2):
+            for n in np.nonzero(bad[b] >= 0)[0]:
+                ref[b, bad[b, n]] = np.maximum(ref[b, bad[b, n]], data[b, n])
+        np.testing.assert_array_equal(got, ref)
+
+
+def _view_at(dtype, C, offset):
+    """A contiguous (2, 5, C) tensor whose storage starts ``offset``
+    elements past an aligned allocation."""
+    flat = torch.zeros(2 * 5 * C + offset, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    return flat[offset:].view(2, 5, C)
+
+
+@pytest.mark.parametrize("dtype,C,offset,want", [
+    (torch.bfloat16, 384, 0, "bulk"),       # the main path: 768-byte rows
+    (torch.float32, 384, 0, "bulk"),        # 1536 bytes
+    (torch.bfloat16, 128, 0, "bulk"),       # 256 bytes, the least
+    (torch.float32, 512, 0, "bulk"),        # 2048 bytes, the most
+    (torch.bfloat16, 136, 0, "bulk"),       # 272 bytes, a multiple of 16
+    (torch.float32, 384, 4, "bulk"),        # a view 16 bytes in
+    (torch.bfloat16, 33, 0, "direct"),      # odd C
+    (torch.float32, 33, 0, "direct"),
+    (torch.bfloat16, 132, 0, "direct"),     # 264 bytes, no multiple of 16
+    (torch.bfloat16, 64, 0, "direct"),      # 128 bytes, under the least
+    (torch.float32, 516, 0, "direct"),      # 2064 bytes, over the most
+    (torch.bfloat16, 2048, 0, "direct"),    # 4096 bytes
+    (torch.bfloat16, 384, 1, "direct"),     # a view 2 bytes in
+    (torch.float32, 384, 1, "direct"),      # a view 4 bytes in
+    (torch.bfloat16, 384, 4, "direct"),     # a view 8 bytes in
+])
+def test_kernel_path(dtype, C, offset, want):
+    data = _view_at(dtype, C, offset)
+    assert data.is_contiguous()
+    assert tsmw.kernel_path(data) == want
+    # the choice is by shape and alignment alone: not by the values, the
+    # ids or the number of rows
+    assert tsmw.kernel_path(data[:1, :1]) == want
+
+
 class TestSegmentMaxFast:
     def test_matches_jax_sorted(self):
         data, ids = _seg_case(N=96, C=24, seed=1)

@@ -146,8 +146,9 @@ class TestConfig:
 
 class TestImportBoundary:
     def _sources(self):
-        return sorted((REPO / "sonet_torch").rglob("*.py")) + [
-            REPO / "chip_smoke.py", REPO / "tools" / "torch_pool_grad_order.py"]
+        return (sorted((REPO / "sonet_torch").rglob("*.py"))
+                + [REPO / "chip_smoke.py"]
+                + sorted((REPO / "tools").glob("torch_*.py")))
 
     def test_sources_import_no_jax(self):
         pat = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|sonet_tpu)\b",
