@@ -17,8 +17,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    of the captured launches, which it cannot.  Kernel 1
    (``segment_max_window``) is also read from a torch.profiler trace, its
    fill and its main kernel apart, and timed on the float32 and the B=64
-   inputs; each of its cases must take the kernel (bulk or direct) that
-   its shape and alignment name.  Kernel 2 (``segment_argmax``) is on no
+   inputs and at the part segmenter's shape (8, 3072, 384); each of its
+   cases must take the kernel (bulk or direct) that its shape and
+   alignment name.  Kernel 2 (``segment_argmax``) is on no
    path of the model and is held here only, also against kernel 1's
    values;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
@@ -27,22 +28,38 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    count read from 0; logits checked for shape and finiteness and held
    against the same weights with scatter pooling; a small float32 model
    held against the same model on the CPU; the B=8 forward timed;
-5. training: ``train.init_state`` and ``train.make_classify_steps`` on the
-   same configuration; the first PointNet's gradients, from a float32
+5. training: ``train.init_state`` and ``train.make_steps`` on the same
+   configuration; the first PointNet's gradients, from a float32
    train-mode forward and from bf16 and float32 forwards with the running
    statistics, and the first train step's loss, held against the scatter
    pooling path; 10 train steps with every
    kernel's launch count read from 0, finite losses and gradients, every
    trainable tensor moved but the biases a BatchNorm follows; a small
    float32 train step held against the CPU; the loss falling over 10
-   steps on one batch with dropout off; the B=8 train step timed;
-6. a JSON line of every kernel with its launches on each path, error and
-   times;
-7. last line: {"ok": true, "device": {...}}.
+   steps on one batch with dropout off; the B=8 train step timed; the
+   state written as a checkpoint;
+6. segment serving: phase 4 for the ShapeNetPart part segmenter
+   (``config.shapenetpart()``, full width): requests carry the shape
+   category, scores are (B', 1024, 50); the comparison with scatter
+   pooling holds the head's un-permute, which a wrong use of the
+   permutation would put far outside its tolerance;
+7. segment training: phase 5 for the part segmenter, with the gradients
+   of the first PointNet and of ``segmenter.layer1`` held against the
+   scatter pooling path with the running statistics, as are the small
+   float32 model's against the CPU;
+8. run round trip: the trained segmenter written as a run (``config.json``
+   and a checkpoint); restored into a fresh state bit for bit (weights,
+   running statistics, Adam's state, step); ``ServingEngine.from_run`` on
+   it answering exactly as ``from_model`` on the trained model;
+   ``restore_encoder`` from phase 5's classifier checkpoint setting
+   exactly the ``encoder.*`` entries of a segmenter state;
+9. a JSON line of every kernel with its launches on each of the four
+   paths, error and times;
+10. last line: {"ok": true, "device": {...}}.
 
-``--profile DIR`` also writes torch.profiler tables of the B=8 forward
-and train step to ``DIR/profile_forward.txt`` and
-``DIR/profile_train_step.txt`` and prints the device-busy shares.
+``--profile DIR`` also writes torch.profiler tables of each B=8 forward
+and train step to ``DIR/profile_<forward|train_step>_<task>.txt`` and
+prints the device-busy shares.
 """
 
 from __future__ import annotations
@@ -53,6 +70,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate
@@ -82,10 +100,19 @@ GRAD_F32_RTOL, GRAD_F32_ATOL = 1e-3, 1e-6
 # train mode is not compared
 GRAD_POOL_CASES = (("bfloat16", False, 2e-2), ("float32", False, 1e-4),
                    ("float32", True, 5e-2))
-# the first PointNet's last bias has a true gradient of 0 (the KNN
-# layer's BatchNorm cancels a constant shift of the pooled features), so
-# both paths give it rounding noise: it is left out of those comparisons
-NOISE_BIAS = "encoder.first_pointnet.PointLayer_3.Dense_0.bias"
+# what each task's gradient comparison covers: the tensors under these
+# prefixes, in these cases.  The segmenter's are held with the running
+# statistics only.  In the classifier the first PointNet's last bias has a
+# true gradient of 0 (the KNN layer's BatchNorm cancels a constant shift
+# of the pooled features, its only reader), so both paths give it
+# rounding noise and it is left out; in the segmenter ``layer1`` reads
+# that output too, and the bias has a gradient whenever it is compared
+GRAD_CHECKS = {
+    "classify": (("encoder.first_pointnet.",), GRAD_POOL_CASES,
+                 ("encoder.first_pointnet.PointLayer_3.Dense_0.bias",)),
+    "segment": (("encoder.first_pointnet.", "segmenter.layer1."),
+                GRAD_POOL_CASES[:2], ()),
+}
 TRAIN_STEPS = 10
 
 
@@ -148,7 +175,8 @@ def device_times_ms(fn, calls: int, first: str, second: str) -> dict:
     which launches a kernel whose name contains ``first`` and then one
     whose name contains ``second``: the median duration of each, and the
     median idle gap between the end of the first and the start of the
-    second, in ms.  Raises if the trace does not hold ``calls`` of each."""
+    second, in ms.  Raises if the trace holds fewer than half of the
+    ``calls`` pairs."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -162,16 +190,23 @@ def device_times_ms(fn, calls: int, first: str, second: str) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA
                    and (first in e.name or second in e.name))
-    a = [(s, t) for s, t, n in spans if first in n]
-    b = [(s, t) for s, t, n in spans if first not in n]
-    if len(a) != calls or len(b) != calls:
-        raise AssertionError(f"the profiler's trace holds {len(a)} {first} "
-                             f"and {len(b)} {second} kernels, want {calls} "
-                             f"of each")
+    # pair each second kernel with the first one that ran just before it:
+    # the profiler now and then drops a kernel from its trace
+    pairs, last = [], None
+    for s, t, n in spans:
+        if first in n:
+            last = (s, t)
+        elif last is not None:
+            pairs.append((last, (s, t)))
+            last = None
+    if len(pairs) < calls // 2:
+        raise AssertionError(f"the profiler's trace holds {len(pairs)} pairs "
+                             f"of a {first} and a {second} kernel, want "
+                             f"{calls}")
     med = statistics.median
-    return {first: med(t - s for s, t in a) / 1e3,
-            second: med(t - s for s, t in b) / 1e3,
-            "gap": med(y[0] - x[1] for x, y in zip(a, b)) / 1e3}
+    return {first: med(t - s for (s, t), _ in pairs) / 1e3,
+            second: med(t - s for _, (s, t) in pairs) / 1e3,
+            "gap": med(y[0] - x[1] for x, y in pairs) / 1e3}
 
 
 def phase_device():
@@ -356,9 +391,10 @@ def _time_kernel1(torch, data, ids, M):
 
 
 def _check_segment_max_window(torch, gen, ids, M):
-    """Kernel 1 on the flagship inputs (bf16 and f32 at B=8, bf16 at B=64)
-    and edge cases, each equal to the plain version and on the kernel its
-    shape and alignment name; then timed."""
+    """Kernel 1 on the flagship inputs (bf16 and f32 at B=8, bf16 at B=64),
+    the part segmenter's input (8, 3072, 384) and edge cases, each equal
+    to the plain version and on the kernel its shape and alignment name;
+    then timed."""
     import ctypes
     from sonet_torch.ops import cuda
     from sonet_torch.ops.cuda.segment_max_window import (
@@ -381,6 +417,7 @@ def _check_segment_max_window(torch, gen, ids, M):
                               dtype=torch.int32)
     ids_empty[ids_empty == 3] = 2                 # node 3 empty; 14..19 empty
     ids64 = _flagship_ids(torch, 64, kN // 3, M, 3, gen, dev)
+    ids_seg = _flagship_ids(torch, B, 1024, M, 3, gen, dev)      # (8, 3072)
     cases = [
         ("flagship bf16 sorted", rand((B, kN, C), torch.bfloat16), ids, M,
          "bulk"),
@@ -388,6 +425,8 @@ def _check_segment_max_window(torch, gen, ids, M):
          "bulk"),
         ("flagship B=64 bf16 sorted", rand((64, kN, C), torch.bfloat16),
          ids64, M, "bulk"),
+        ("part segmenter bf16 sorted", rand((B, 3072, C), torch.bfloat16),
+         ids_seg, M, "bulk"),
         ("unsorted f32", rand((2, 1000, 96), torch.float32), ids_small, 16,
          "bulk"),
         ("ragged N=1001, odd C=33, bf16",
@@ -422,6 +461,7 @@ def _check_segment_max_window(torch, gen, ids, M):
     t = _time_kernel1(torch, data, ids, M)
     t_f32 = _time_kernel1(torch, data_f32, ids, M)
     t_b64 = _time_kernel1(torch, data64, ids64, M)
+    t_seg = _time_kernel1(torch, cases[3][1], ids_seg, M)
     host_us = host_us_per_call(lambda: windowed_vals(data, ids, M))
     base = torch.empty((B, M, C), dtype=data.dtype, device=dev)
     idx = ids.long()[..., None].expand(B, kN, C).contiguous()
@@ -445,7 +485,10 @@ def _check_segment_max_window(torch, gen, ids, M):
             "f32_bound_ms": t_f32["bound_ms"],
             "b64_ms": t_b64["event_ms"], "b64_graph_ms": t_b64["graph_ms"],
             "b64_main_device_ms": t_b64["main_ms"],
-            "b64_bound_ms": t_b64["bound_ms"]}
+            "b64_bound_ms": t_b64["bound_ms"],
+            "seg_ms": t_seg["event_ms"], "seg_graph_ms": t_seg["graph_ms"],
+            "seg_main_device_ms": t_seg["main_ms"],
+            "seg_bound_ms": t_seg["bound_ms"]}
 
 
 def _check_segment_argmax(torch, gen, ids, M):
@@ -549,7 +592,9 @@ def _check_segment_argmax(torch, gen, ids, M):
 
 def _clouds(np, n_items, cfg, seed):
     """Points on random ellipsoids with their normals, and SOM nodes
-    picked among the points, from ``seed``."""
+    picked among the points, from ``seed``; for a segment configuration
+    also each cloud's shape category (``label``) and per-point part labels
+    (``seg``): the category's parts as bands along the first axis."""
     rs = np.random.RandomState(seed)
     N, M = cfg.input_pc_num, cfg.node_num
     u = rs.randn(n_items, N, 3)
@@ -560,30 +605,58 @@ def _clouds(np, n_items, cfg, seed):
     sn /= np.linalg.norm(sn, axis=-1, keepdims=True)
     pick = np.stack([rs.choice(N, M, replace=False) for _ in range(n_items)])
     node = np.take_along_axis(pc, pick[..., None], axis=1)
-    return {"pc": pc.astype(np.float32), "sn": sn.astype(np.float32),
-            "node": node.astype(np.float32)}
+    out = {"pc": pc.astype(np.float32), "sn": sn.astype(np.float32),
+           "node": node.astype(np.float32)}
+    if cfg.task == "segment":
+        from sonet_torch.ops.iou import PART_TABLE, PART_VALID
+        label = rs.randint(0, len(PART_TABLE), n_items)
+        n_parts = PART_VALID[label].sum(-1)[:, None]              # (n, 1)
+        band = np.minimum(((u[..., 0] + 1) / 2 * n_parts).astype(np.int64),
+                          n_parts - 1)
+        out["label"] = label.astype(np.int32)
+        out["seg"] = PART_TABLE[label[:, None], band]
+    return out
 
 
-def phase_serve(kernel_counters, on_path, profile_dir=None):
-    """Serve the ModelNet40 classifier on the card; returns the launches
-    of every kernel during the served requests.  Each kernel named in
-    ``on_path`` must launch for every request."""
+def _input_names(cfg):
+    from sonet_torch.serving import input_signature
+    return [name for name, _, _ in input_signature(cfg)]
+
+
+def _score_shape(cfg, n_items):
+    if cfg.task == "segment":
+        return (n_items, cfg.input_pc_num, cfg.classes)
+    return (n_items, cfg.classes)
+
+
+def _describe(cfg):
+    return (f"{cfg.task} ({cfg.dataset}): B={cfg.batch_size}, "
+            f"N={cfg.input_pc_num}, M={cfg.node_num}, k={cfg.k}, "
+            f"som_k={cfg.som_k} ({cfg.som_k_type}), F={cfg.feature_num}, "
+            f"classes={cfg.classes}, {cfg.compute_dtype}, dropout "
+            f"{cfg.dropout}")
+
+
+def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
+    """Serve ``cfg``'s model (the ModelNet40 classifier or the ShapeNetPart
+    part segmenter) on the card; returns the launches of every kernel
+    during the served requests.  Each kernel named in ``on_path`` must
+    launch for every request.  ``small`` is the float32 configuration
+    held against the CPU."""
     import numpy as np
     import torch
-    from sonet_torch import config
     from sonet_torch.models import build_model
     from sonet_torch.serving import ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
-    cfg = config.modelnet40()
     model = build_model(cfg, device="cuda", seed=0)
     engine = ServingEngine.from_model(model, cfg, device="cuda")
-    log(f"serving {cfg.task} modelnet40: B={engine.batch_size}, "
-        f"N={cfg.input_pc_num}, M={cfg.node_num}, k={cfg.k}, "
-        f"som_k={cfg.som_k}, F={cfg.feature_num}, classes={cfg.classes}, "
-        f"{cfg.compute_dtype}, pooling={engine.manifest['pooling']}")
+    names = engine.input_names
+    log(f"serving {_describe(cfg)}, inputs {names}, "
+        f"pooling={engine.manifest['pooling']}")
     engine.warmup()
-    inputs = _clouds(np, 13, cfg, seed=1)
+    clouds = _clouds(np, 13, cfg, seed=1)
+    inputs = {n: clouds[n] for n in names}
 
     for counter in kernel_counters.values():
         counter.launches = 0
@@ -593,10 +666,10 @@ def phase_serve(kernel_counters, on_path, profile_dir=None):
         out = engine.predict({n: a[:b] for n, a in inputs.items()})
         torch.cuda.synchronize()
         grew = {n: c.launches - before[n] for n, c in kernel_counters.items()}
-        log(f"request B'={b}: logits {out.shape}, finite "
+        log(f"request B'={b}: scores {out.shape}, finite "
             f"{bool(np.isfinite(out).all())}, kernel launches {grew}")
-        if out.shape != (b, cfg.classes) or not np.isfinite(out).all():
-            raise AssertionError(f"bad logits for B'={b}: {out.shape}")
+        if out.shape != _score_shape(cfg, b) or not np.isfinite(out).all():
+            raise AssertionError(f"bad scores for B'={b}: {out.shape}")
         if not all(grew[n] > 0 for n in on_path):
             raise AssertionError(f"a kernel was not launched for B'={b}: "
                                  f"{grew}")
@@ -610,39 +683,41 @@ def phase_serve(kernel_counters, on_path, profile_dir=None):
         diff = float(np.abs(outputs[13][:b] - outputs[b]).max())
         log(f"B'=13 vs B'={b} on the shared items: max abs diff {diff}")
         if diff > LOGIT_RTOL * max(1.0, float(np.abs(outputs[b]).max())):
-            raise AssertionError("served logits depend on the request size")
+            raise AssertionError("served scores depend on the request size")
 
-    # the same weights through the scatter pooling path
+    # the same weights through the scatter pooling path, which sorts and
+    # un-permutes nothing
     scatter = build_model(cfg.replace(pooling="scatter"), device="cuda")
     scatter.load_state_dict(model.state_dict())
-    dev_in = {n: torch.from_numpy(a[:8]).cuda() for n, a in inputs.items()}
+    dev_in = [torch.from_numpy(inputs[n][:8]).cuda() for n in names]
     with torch.inference_mode():
-        ref = scatter(dev_in["pc"], dev_in["sn"], dev_in["node"])[0]
+        ref = scatter(*dev_in)[0]
     ref = ref.float().cpu().numpy()
     diff = float(np.abs(ref - outputs[8]).max())
     scale = max(1.0, float(np.abs(ref).max()))
-    log(f"sorted_window vs scatter logits: max abs diff {diff} "
-        f"(max |logit| {scale}, tolerance {LOGIT_RTOL} x that)")
+    log(f"sorted_window vs scatter scores: max abs diff {diff} "
+        f"(max |score| {scale}, tolerance {LOGIT_RTOL} x that)")
     if diff > LOGIT_RTOL * scale:
         raise AssertionError("kernel path disagrees with the scatter path")
 
     # a small float32 model on the card against the same model on the CPU
-    small = config.tiny_test()
-    small_in = [torch.from_numpy(a) for a in _clouds(np, 4, small, 2).values()]
+    small_clouds = _clouds(np, 4, small, 2)
+    small_in = [torch.from_numpy(small_clouds[n]) for n in names]
     on_cpu = build_model(small, device="cpu", seed=0)
     on_card = build_model(small, device="cuda", seed=0)
     with torch.inference_mode():
         want = on_cpu(*small_in)[0]
         got = on_card(*(a.cuda() for a in small_in))[0].cpu()
     diff = float((got - want).abs().max())
-    log(f"tiny_test float32, card vs CPU: max abs diff {diff} "
-        f"(tolerance {SMALL_F32_TOL} x max(1, max |logit|))")
-    if diff > SMALL_F32_TOL * max(1.0, float(want.abs().max())):
+    log(f"small float32 {small.task} model, card vs CPU: max abs diff {diff} "
+        f"(tolerance {SMALL_F32_TOL} x max(1, max |score|))")
+    if got.shape != _score_shape(small, 4) or diff > SMALL_F32_TOL * max(
+            1.0, float(want.abs().max())):
         raise AssertionError("the model on the card disagrees with the CPU")
 
     def forward():
         with torch.inference_mode():
-            model(dev_in["pc"], dev_in["sn"], dev_in["node"])
+            model(*dev_in)
 
     fwd_ms = time_ms(forward, reps=20)
     req8 = {n: a[:8] for n, a in inputs.items()}
@@ -652,14 +727,14 @@ def phase_serve(kernel_counters, on_path, profile_dir=None):
         engine.predict(req8)
         t.append((time.perf_counter() - t0) * 1e3)
     req_ms = statistics.median(t)
-    log(f"B=8 forward on the card: {fwd_ms:.4f} ms "
+    log(f"{cfg.task} B=8 forward on the card: {fwd_ms:.4f} ms "
         f"({8 / fwd_ms * 1e3:.1f} clouds/s); B'=8 request through "
         f"ServingEngine (host arrays in and out): {req_ms:.4f} ms "
         f"({8 / req_ms * 1e3:.1f} clouds/s); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
 
     if profile_dir:
-        profile_run(forward, profile_dir, "forward")
+        profile_run(forward, profile_dir, f"forward_{cfg.task}")
     return launches
 
 
@@ -675,35 +750,44 @@ def _rel_err(a, b) -> float:
     return float((a - b).float().norm() / b.float().norm().clamp_min(1e-30))
 
 
-def phase_train(kernel_counters, on_path, profile_dir=None):
-    """Train the ModelNet40 classifier on the card through
-    ``train.init_state`` and ``train.make_classify_steps``; returns the
-    launches of every kernel during the TRAIN_STEPS steps.  Each kernel
-    named in ``on_path`` must launch once per step."""
+def _train_loss(model, cfg, batch, generator):
+    """The train-step loss of ``cfg.task`` on ``batch`` in the model's
+    current mode, at epoch 0, with dropout masks from ``generator``."""
+    from sonet_torch import train
+    score, _ = model(*(batch[n] for n in _input_names(cfg)), epoch=0,
+                     generator=generator)
+    if cfg.task == "segment":
+        return train.losses.cross_entropy_seg(score, batch["seg"])
+    return train.losses.cross_entropy(score, batch["label"])
+
+
+def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
+                profile_dir=None):
+    """Train ``cfg``'s model on the card through ``train.init_state`` and
+    ``train.make_steps``, and write the state as a checkpoint under
+    ``ckpt_dir``.  Returns the launches of every kernel during the
+    TRAIN_STEPS steps, the train state, and the checkpoint's path.  Each
+    kernel named in ``on_path`` must launch once per step.  ``small`` is
+    the float32 configuration whose train step is held against the CPU."""
     import numpy as np
     import torch
-    from sonet_torch import config, train
+    from sonet_torch import train
     from sonet_torch.models import build_model
     from sonet_torch.nn.encoder import resolve_pooling
 
     dev = torch.device("cuda")
-    cfg = config.modelnet40()
     B, spe = cfg.batch_size, 100
     state = train.init_state(cfg, device=dev, seed=0, steps_per_epoch=spe)
-    train_step, eval_step = train.make_classify_steps(cfg, spe)
+    train_step, eval_step = train.make_steps(cfg, spe)
     model = state.model
-    log(f"training {cfg.task} modelnet40: B={B}, N={cfg.input_pc_num}, "
-        f"M={cfg.node_num}, k={cfg.k}, som_k={cfg.som_k}, "
-        f"F={cfg.feature_num}, {cfg.compute_dtype}, dropout {cfg.dropout}, "
-        f"Adam lr {cfg.lr}, pooling={resolve_pooling(cfg, dev)}")
+    log(f"training {_describe(cfg)}, Adam lr {cfg.lr}, "
+        f"pooling={resolve_pooling(cfg, dev)}")
     clouds = _clouds(np, 3 * B, cfg, seed=3)
-    labels = np.random.RandomState(4).randint(0, cfg.classes, 3 * B)
-    batches = []
-    for i in range(3):
-        part = slice(i * B, (i + 1) * B)
-        b = {n: torch.from_numpy(a[part]).to(dev) for n, a in clouds.items()}
-        b["label"] = torch.from_numpy(labels[part]).to(dev)
-        batches.append(b)
+    if cfg.task != "segment":
+        clouds["label"] = np.random.RandomState(4).randint(0, cfg.classes,
+                                                           3 * B)
+    batches = [{n: torch.from_numpy(a[i * B:(i + 1) * B]).to(dev)
+                for n, a in clouds.items()} for i in range(3)]
     stopped = _stopped_biases(model)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -713,12 +797,11 @@ def phase_train(kernel_counters, on_path, profile_dir=None):
     twin = build_model(cfg.replace(pooling="scatter"), device=dev)
     twin.load_state_dict(model.state_dict())
     twin.train()
-    b0 = batches[0]
     with torch.no_grad():
-        score, _ = twin(b0["pc"], b0["sn"], b0["node"], epoch=0,
-                        generator=torch.Generator(device=dev).manual_seed(7))
-        twin_loss = float(train.losses.cross_entropy(score, b0["label"]))
-    del twin, score
+        twin_loss = float(_train_loss(
+            twin, cfg, batches[0],
+            torch.Generator(device=dev).manual_seed(7)))
+    del twin
 
     gen = torch.Generator(device=dev).manual_seed(7)
     for counter in kernel_counters.values():
@@ -763,13 +846,13 @@ def phase_train(kernel_counters, on_path, profile_dir=None):
         raise AssertionError("parameters moved where they should not, or "
                              "did not where they should")
     ev = eval_step(state, batches[0])
-    if ev["score"].shape != (B, cfg.classes) or not bool(
-            torch.isfinite(ev["score"]).all()):
-        raise AssertionError("eval_step: bad scores")
-    log(f"eval_step: loss {float(ev['loss'])}, accuracy "
-        f"{float(ev['accuracy'])}")
+    if ev["score"].shape != _score_shape(cfg, B) or not all(
+            bool(torch.isfinite(v).all()) for v in ev.values()):
+        raise AssertionError("eval_step: bad scores or metrics")
+    log("eval_step: " + ", ".join(f"{k} {float(v)}" for k, v in ev.items()
+                                  if v.dim() == 0))
 
-    _train_tiny_card_vs_cpu(torch, np, config, train)
+    _train_small_card_vs_cpu(torch, np, train, small)
 
     # one fixed batch, dropout off: the loss must fall
     fixed = train.init_state(cfg.replace(dropout=0.0), device=dev, seed=1,
@@ -788,22 +871,24 @@ def phase_train(kernel_counters, on_path, profile_dir=None):
 
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(step, reps=20)
-    log(f"B=8 train step on the card: {step_ms:.4f} ms "
+    log(f"{cfg.task} B=8 train step on the card: {step_ms:.4f} ms "
         f"({B / step_ms * 1e3:.1f} clouds/s); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
     if profile_dir:
-        profile_run(step, profile_dir, "train_step")
-    return launches
+        profile_run(step, profile_dir, f"train_step_{cfg.task}")
+    ckpt = train.save_checkpoint(ckpt_dir, state, state.step)
+    log(f"checkpoint of step {state.step}: {os.path.basename(ckpt)}, "
+        f"{os.path.getsize(ckpt) / 2 ** 20:.1f} MiB")
+    return launches, state, ckpt
 
 
 def _pooling_gradient_checks(torch, cfg, batch, state_dict):
-    """The first PointNet's gradients through the kernel and through
-    scatter pooling, from the same weights, batch and dropout masks, for
-    each case of GRAD_POOL_CASES."""
-    from sonet_torch import train
+    """The gradients under ``GRAD_CHECKS[cfg.task]``'s prefixes through the
+    kernel and through scatter pooling, from the same weights, batch and
+    dropout masks, for each of its cases."""
     from sonet_torch.models import build_model
-    prefix = "encoder.first_pointnet."
-    for dtype, train_mode, tol in GRAD_POOL_CASES:
+    prefixes, cases, skip = GRAD_CHECKS[cfg.task]
+    for dtype, train_mode, tol in cases:
         stats = "batch" if train_mode else "running"
         grads = {}
         for pooling in ("sorted_window", "scatter"):
@@ -812,57 +897,154 @@ def _pooling_gradient_checks(torch, cfg, batch, state_dict):
             m.load_state_dict(state_dict)
             m.train(train_mode)
             gen = torch.Generator(device="cuda").manual_seed(7)
-            score, _ = m(batch["pc"], batch["sn"], batch["node"], epoch=0,
-                         generator=gen)
-            train.losses.cross_entropy(score, batch["label"]).backward()
+            _train_loss(m, cfg, batch, gen).backward()
             grads[pooling] = {n: p.grad for n, p in m.named_parameters()
-                              if n.startswith(prefix) and p.grad is not None}
-            del m, score
+                              if n.startswith(prefixes)
+                              and p.grad is not None}
+            del m
         kernel, scatter = grads["sorted_window"], grads["scatter"]
         errs = {n: _rel_err(kernel[n], g) for n, g in scatter.items()
-                if n != NOISE_BIAS}
+                if n not in skip}
         worst = max(errs, key=errs.get)
-        log(f"first_pointnet gradients, kernel vs scatter pooling ({dtype}, "
-            f"{stats} statistics): {len(errs)} tensors, worst relative "
-            f"error {errs[worst]:.3e} ({worst[len(prefix):]}; tolerance "
+        log(f"gradients under {', '.join(prefixes)} kernel vs scatter "
+            f"pooling ({dtype}, {stats} statistics): {len(errs)} tensors, "
+            f"worst relative error {errs[worst]:.3e} ({worst}; tolerance "
             f"{tol}); norms {float(kernel[worst].norm()):.6g} vs "
             f"{float(scatter[worst].norm()):.6g}")
+        if set(kernel) != set(scatter) or not all(
+                any(n.startswith(p) for n in errs) for p in prefixes):
+            raise AssertionError(f"{cfg.task} gradients ({dtype}): a tensor "
+                                 f"is missing on one path")
         if errs[worst] > tol:
-            raise AssertionError(f"first_pointnet gradients ({dtype}, {stats} "
+            raise AssertionError(f"{cfg.task} gradients ({dtype}, {stats} "
                                  f"statistics): the kernel path disagrees "
                                  f"with scatter")
 
 
-def _train_tiny_card_vs_cpu(torch, np, config, train):
-    """One float32 ``tiny_test`` train step on the card against the same
-    step on the CPU: loss and every gradient."""
-    cfg = config.tiny_test().replace(dropout=0.0)
-    step, _ = train.make_classify_steps(cfg, steps_per_epoch=10)
-    rs = np.random.RandomState(5)
+def _train_small_card_vs_cpu(torch, np, train, cfg):
+    """One float32 train step of the small configuration ``cfg`` on the
+    card against the same step on the CPU: the loss and every gradient.
+
+    The segmenter's gradients are taken from a forward with the running
+    statistics, just before the step.  With batch statistics its gradient
+    is no continuous function of its inputs: on the CPU alone, a relative
+    change of 2e-7 in the weights flips ReLUs and pooling winners and
+    moves single gradients by up to 18% of a tensor's largest entry
+    (tools/torch_grad_sensitivity.py), so card against CPU would hold or
+    fail by the luck of the batch."""
+    step, _ = train.make_steps(cfg, steps_per_epoch=10)
     small = _clouds(np, 4, cfg, seed=2)
-    small["label"] = rs.randint(0, cfg.classes, 4)
+    if cfg.task != "segment":
+        small["label"] = np.random.RandomState(5).randint(0, cfg.classes, 4)
+    running = cfg.task == "segment"
+
+    def grads_of(model):
+        return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                .detach().cpu() for n, p in model.named_parameters()}
+
     out = {}
     for dev in ("cpu", "cuda"):
         state = train.init_state(cfg, device=dev, seed=0, steps_per_epoch=10)
         batch = {n: torch.from_numpy(a).to(dev) for n, a in small.items()}
+        if running:
+            _train_loss(state.model.eval(), cfg, batch, None).backward()
+            grads = grads_of(state.model)
         state, metrics = step(state, batch, None)
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 .detach().cpu() for n, p in state.model.named_parameters()}
+        if not running:
+            grads = grads_of(state.model)
         out[dev] = float(metrics["loss"]), grads
     (want_loss, want), (got_loss, got) = out["cpu"], out["cuda"]
     errs = {n: float((got[n] - w).abs().max())
             / (GRAD_F32_RTOL * float(w.abs().max()) + GRAD_F32_ATOL)
             for n, w in want.items()}
     worst = max(errs, key=errs.get)
-    log(f"tiny_test float32 train step, card vs CPU: loss {got_loss} vs "
-        f"{want_loss}; worst gradient at {errs[worst]:.3f} of its tolerance "
-        f"({worst})")
+    log(f"small float32 {cfg.task} train step, card vs CPU: loss {got_loss} "
+        f"vs {want_loss}; worst gradient ("
+        f"{'running' if running else 'batch'} statistics) at "
+        f"{errs[worst]:.3f} of its tolerance ({worst})")
     if abs(got_loss - want_loss) > SMALL_F32_TOL * max(1.0, abs(want_loss)):
         raise AssertionError("the train loss on the card disagrees with the "
                              "CPU")
     if errs[worst] > 1.0:
         raise AssertionError("the gradients on the card disagree with the "
                              "CPU")
+
+
+def _same_tensors(torch, got, want, device) -> list:
+    """Names under which two flat dicts of tensors differ in value, dtype
+    or device (``want``'s device where ``device`` is None)."""
+    if list(got) != list(want):
+        return sorted(set(got) ^ set(want)) or ["order"]
+    return [k for k, w in want.items()
+            if not torch.equal(got[k], w) or got[k].dtype != w.dtype
+            or got[k].device != (device or w.device)]
+
+
+def phase_round_trip(cfg, state, run_dir, path, classifier_ckpt):
+    """Make ``run_dir``, which holds the trained segmenter ``state``'s
+    checkpoint ``path`` under ``ckpt/``, a whole run; restore it, serve
+    it, and transfer the classifier's encoder into it."""
+    import numpy as np
+    import torch
+    from sonet_torch import train
+    from sonet_torch.serving import ServingEngine
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg.save(os.path.join(run_dir, "config.json"))
+    fresh = train.init_state(cfg, device="cuda", seed=123)
+    train.restore_checkpoint(path, fresh)
+    bad = _same_tensors(torch, fresh.model.state_dict(),
+                        state.model.state_dict(), dev)
+    want_opt, got_opt = (s.optimizer.state_dict() for s in (state, fresh))
+    if got_opt["param_groups"] != want_opt["param_groups"]:
+        bad.append("optimizer param_groups")
+    for i, entry in want_opt["state"].items():
+        # moments beside their parameters; step counters where the live
+        # optimizer keeps them
+        bad += [f"optimizer state {i}: {k}" for k in _same_tensors(
+            torch, got_opt["state"].get(i, {}), entry, None)]
+        if entry["exp_avg"].device != dev:
+            bad.append(f"optimizer state {i}: not on {dev}")
+    n_opt = sum(len(e) for e in want_opt["state"].values())
+    log(f"restore_checkpoint({os.path.basename(path)}, "
+        f"{os.path.getsize(path) / 2 ** 20:.1f} MiB) into a fresh state: "
+        f"{len(state.model.state_dict())} model tensors and {n_opt} "
+        f"optimizer tensors on {dev}, step {fresh.step} vs {state.step}; "
+        f"different: {bad}")
+    if bad or fresh.step != state.step:
+        raise AssertionError("the restored state differs from the saved one")
+
+    from_run = ServingEngine.from_run(run_dir, device="cuda")
+    from_model = ServingEngine.from_model(state.model, cfg, device="cuda")
+    clouds = _clouds(np, 13, cfg, seed=8)
+    req = {n: clouds[n] for n in from_run.input_names}
+    a, b = from_run.predict(req), from_model.predict(req)
+    same = a.shape == _score_shape(cfg, 13) and np.array_equal(a, b)
+    m = from_run.manifest
+    log(f"ServingEngine.from_run vs from_model on the trained model, B'=13: "
+        f"scores {a.shape}, equal {same} (max abs diff "
+        f"{float(np.abs(a - b).max())}); manifest source {m['source']!r}, "
+        f"checkpoint {os.path.basename(m['checkpoint'])}, pooling "
+        f"{m['pooling']}")
+    if not same or not np.isfinite(a).all() or m["source"] != "run" or (
+            m["checkpoint"] != path):
+        raise AssertionError("from_run does not answer as from_model")
+
+    # the classifier's encoder into the segmenter state (the transfer path)
+    saved = torch.load(classifier_ckpt, map_location=dev, weights_only=True)
+    before = {k: v.clone() for k, v in fresh.model.state_dict().items()}
+    train.restore_encoder(classifier_ckpt, fresh)
+    after = fresh.model.state_dict()
+    enc = [k for k in after if k.startswith("encoder.")]
+    wrong = [k for k in enc if not torch.equal(after[k], saved["model"][k])]
+    touched = [k for k in after if k not in enc
+               and not torch.equal(after[k], before[k])]
+    changed = sum(not torch.equal(after[k], before[k]) for k in enc)
+    log(f"restore_encoder from the classifier's checkpoint: {len(enc)} "
+        f"encoder entries set ({changed} changed), wrong {wrong}; "
+        f"{len(after) - len(enc)} head entries, touched {touched}")
+    if wrong or touched or not changed:
+        raise AssertionError("restore_encoder set the wrong entries")
 
 
 def profile_run(fn, out_dir, what):
@@ -883,8 +1065,11 @@ def profile_run(fn, out_dir, what):
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     # device rows only (kernels, copies, memsets): the operator rows
-    # repeat their kernels' time
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    # repeat their kernels' time, and so does the span that the optimizer
+    # step marks on the device, gaps between its kernels included
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and not e.key.startswith("Optimizer.step")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     path = os.path.join(out_dir, f"profile_{what}.txt")
     with open(path, "w") as f:
@@ -928,8 +1113,25 @@ def main(argv=None) -> int:
     counters = {"segment_max_window": windowed_vals,
                 "segment_argmax": segment_argmax}
     on_path = ("segment_max_window",)       # kernel 2 is on no path
-    by_path = {"serve": phase_serve(counters, on_path, args.profile),
-               "train": phase_train(counters, on_path, args.profile)}
+    from sonet_torch import config
+    classify, segment = config.modelnet40(), config.shapenetpart()
+    small = config.tiny_test()
+    small_seg = small.replace(task="segment", classes=segment.classes)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as runs:
+        by_path["serve"] = phase_serve(classify, small, counters, on_path,
+                                       args.profile)
+        by_path["train"], _, classifier_ckpt = phase_train(
+            classify, small.replace(dropout=0.0), counters, on_path,
+            os.path.join(runs, "classify", "ckpt"), args.profile)
+        by_path["serve_segment"] = phase_serve(segment, small_seg, counters,
+                                               on_path, args.profile)
+        seg_run = os.path.join(runs, "segment")
+        by_path["train_segment"], seg_state, seg_ckpt = phase_train(
+            segment, small_seg.replace(dropout=0.0), counters, on_path,
+            os.path.join(seg_run, "ckpt"), args.profile)
+        phase_round_trip(segment, seg_state, seg_run, seg_ckpt,
+                         classifier_ckpt)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

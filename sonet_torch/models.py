@@ -1,9 +1,11 @@
 """Task models (port of the JAX package's ``models.py``): encoder + head.
 
 The module tree keeps the JAX package's top-level split (``encoder`` /
-``classifier``), so per-subnetwork weights and learning rates map one to
-one.  Only the classifier is ported so far; retrieval serves its scores as
-keys.  Train or eval follows ``nn.Module.training``.
+``classifier`` / ``segmenter``), so per-subnetwork checkpoints, the
+encoder-only transfer and per-subnetwork learning rates map one to one.
+The classifier and the part segmenter are ported; retrieval serves the
+classifier's scores as keys.  Train or eval follows
+``nn.Module.training``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from torch import nn
 from .config import Config
 from .device import resolve_device
 from .nn.encoder import Encoder, EncoderOutput
-from .nn.heads import ClassifierHead
+from .nn.heads import ClassifierHead, SegmenterHead
 
 
 class ClassifierModel(nn.Module):
@@ -38,9 +40,29 @@ class ClassifierModel(nn.Module):
         return self.classifier(enc.feature, epoch, generator), enc
 
 
+class SegmenterModel(nn.Module):
+    """Encoder + per-point part segmenter."""
+
+    def __init__(self, cfg: Config, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, generator)
+        self.segmenter = SegmenterHead(cfg, generator)
+
+    def forward(self, pc, sn, node, label, node_knn_I=None, *,
+                epoch: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> tuple[torch.Tensor, EncoderOutput]:
+        """``label`` (B,) is the shape category; scores are (B, N, classes).
+        ``epoch`` and ``generator`` as in ``ClassifierModel``."""
+        enc = self.encoder(pc, sn, node, node_knn_I, epoch=epoch)
+        return self.segmenter(enc, label, epoch, generator), enc
+
+
 _MODELS = {
     "classify": ClassifierModel,
     "retrieve": ClassifierModel,  # retrieval = classifier scores as keys
+    "segment": SegmenterModel,
 }
 
 

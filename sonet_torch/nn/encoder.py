@@ -56,8 +56,11 @@ def layer_kw(cfg: Config) -> dict:
 
 class EncoderOutput(NamedTuple):
     """What the encoder hands to the heads.  With the sorted pipeline
-    (``perm is not None``) every per-point tensor is in node-sorted order;
-    ``inv_perm`` maps back (original[j] = sorted[inv_perm[j]])."""
+    (``perm is not None``) every per-point tensor -- min_idx, centers,
+    x_stack, sn_stack, x_decentered, first_pn_out, onehot -- is in
+    node-sorted order; ``inv_perm`` maps back
+    (original[j] = sorted[inv_perm[j]]).  The segmenter un-permutes once,
+    before it averages the k copies."""
 
     feature: torch.Tensor              # (B, F) global shape feature
     min_idx: torch.Tensor              # (B, kN) int32 node id per point
@@ -75,6 +78,7 @@ class EncoderOutput(NamedTuple):
     final_pn_out: torch.Tensor         # (B, M, F)
     perm: Optional[torch.Tensor] = None      # (B, kN) sorted pos -> original
     inv_perm: Optional[torch.Tensor] = None  # (B, kN) original -> sorted pos
+    onehot: Optional[torch.Tensor] = None    # (B, kN, M) assignment one-hot
 
 
 class Encoder(nn.Module):
@@ -201,4 +205,4 @@ class Encoder(nn.Module):
             x_decentered=x_decentered, first_pn_out=first_pn_out,
             first_pn_out_masked_max=pooled, knn_center=knn_center,
             knn_feature=knn_feature, final_pn_out=final_pn_out,
-            perm=perm, inv_perm=inv_perm)
+            perm=perm, inv_perm=inv_perm, onehot=onehot)

@@ -16,7 +16,7 @@ normalises with the batch statistics and updates its running ones with
 torch-convention momentum and the reference's epoch momentum decay, and
 the bias of a dense layer that a BatchNorm follows gets no gradient
 (``stop_bias_grad``).  ``InstanceNorm`` and ``UpConv`` arrive with the
-slices that use them.
+autoencoder.
 """
 
 from __future__ import annotations
@@ -88,7 +88,13 @@ class Dense(nn.Module):
 class ConcatDense(Dense):
     """Dense over the concatenation of several inputs, computed as one
     sliced matmul per input plus a sum; the (sum C_i, F) kernel is one
-    matrix, as in the JAX package."""
+    matrix, as in the JAX package.
+
+    Rank-2 inputs ``(B, C_i)`` among rank-3 ones are broadcast along the
+    points (the segmenter's global feature and label one-hot): their
+    matmul runs at ``(B, C_i)`` and its result is broadcast-added, so
+    neither the ``(B, N, C_i)`` copies nor their N-fold redundant products
+    exist."""
 
     def __init__(self, in_features: Sequence[int], features: int,
                  generator: torch.Generator,
@@ -101,10 +107,13 @@ class ConcatDense(Dense):
     def forward(self, *xs: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype or torch.float32
         w, b = self._params(dt)
+        out_rank = max(x.dim() for x in xs)
         y = None
         off = 0
         for x, c in zip(xs, self.splits):
             part = F.linear(x.to(dt), w[:, off:off + c])
+            for _ in range(out_rank - x.dim()):      # broadcast along points
+                part = part.unsqueeze(1)
             y = part if y is None else y + part
             off += c
         return y + b

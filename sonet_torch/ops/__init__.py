@@ -2,7 +2,8 @@
 package's ``ops``).  Plain tensor code is PyTorch; the JAX package's
 Pallas kernels become CUDA kernels under ``ops.cuda``."""
 
-from .gather import knn_gather
+from .gather import gather_by_segment, knn_gather, permute_points
+from .iou import compute_iou, iou_per_shape
 from .pairwise import (TopKAssign, assign_topk, knn, one_hot, one_hot_f32,
                        pairwise_sqdist)
 from .segment import route_max_grad, segment_counts, segment_max
@@ -14,7 +15,8 @@ from .cuda.segment_max_window import (segment_max_windowed, windowed_vals,
 
 __all__ = [
     "pairwise_sqdist", "knn", "assign_topk", "one_hot", "one_hot_f32",
-    "TopKAssign", "knn_gather", "segment_counts", "segment_max",
+    "TopKAssign", "knn_gather", "permute_points", "gather_by_segment",
+    "compute_iou", "iou_per_shape", "segment_counts", "segment_max",
     "route_max_grad", "segment_max_fast", "segment_max_windowed",
     "windowed_vals", "windowed_vals_plain", "segment_argmax",
     "segment_argmax_plain", "segment_max_argmax",

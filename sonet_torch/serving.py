@@ -8,12 +8,14 @@ with copies of its last item, and the padding is sliced off.  Per-item
 outputs do not depend on the batch in eval mode.  Dispatch is serialised
 on a lock (one card, one model).
 
-Restoring from a run directory, the request micro-batcher and export
-arrive with later slices.
+``ServingEngine.from_run`` restores a finished run (its ``config.json``
+and the newest checkpoint under ``ckpt/``).  The request micro-batcher,
+export and serving over a device mesh arrive with later slices.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Callable, Optional
@@ -22,12 +24,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from .config import Config
+from . import train
+from .config import Config, load_config
 from .device import resolve_device
 from .nn.encoder import resolve_pooling, spatial_dim
 
 _OUTPUT_DOC = {"classify": "score (B, classes)",
-               "retrieve": "score (B, classes)"}
+               "retrieve": "score (B, classes)",
+               "segment": "per-point score (B, N, classes)"}
 
 
 def batch_buckets(max_batch: int) -> list:
@@ -49,31 +53,53 @@ def input_signature(cfg: Config, batch_size: Optional[int] = None):
     """(name, shape, dtype) triples of the serving inputs for ``cfg``."""
     B = batch_size or cfg.batch_size
     D = spatial_dim(cfg)
-    return [("pc", (B, cfg.input_pc_num, D), "float32"),
-            ("sn", (B, cfg.input_pc_num, D), "float32"),
-            ("node", (B, cfg.node_num, D), "float32")]
+    sig = [("pc", (B, cfg.input_pc_num, D), "float32"),
+           ("sn", (B, cfg.input_pc_num, D), "float32"),
+           ("node", (B, cfg.node_num, D), "float32")]
+    if cfg.task == "segment":
+        sig.append(("label", (B,), "int32"))
+    return sig
 
 
 def build_serve_fn(model: nn.Module, cfg: Config) -> Callable:
-    """Eval-mode forward of a classify/retrieve model: (pc, sn, node)
-    tensors on the model's device -> score (B, classes)."""
+    """Eval-mode forward of a model: the inputs of ``input_signature`` as
+    tensors on the model's device -> the task's output (``_OUTPUT_DOC``)."""
     if cfg.task not in _OUTPUT_DOC:
         raise NotImplementedError(f"serving task {cfg.task!r} is not ported "
                                   f"yet (have {sorted(_OUTPUT_DOC)})")
     model.eval()
 
-    def serve(pc, sn, node):
+    def serve(*inputs):
         with torch.inference_mode():
-            score, _ = model(pc, sn, node)
+            score, _ = model(*inputs)
         return score
 
     return serve
 
 
+def _restore_run(run_dir: str, batch_size: Optional[int] = None,
+                 checkpoint: Optional[str] = None,
+                 device: str | torch.device = "cuda"):
+    """Restore a finished run for serving: ``(cfg, model, state, ckpt)``,
+    from ``run_dir/config.json`` and ``checkpoint`` (default: the newest
+    under ``run_dir/ckpt``), on ``device``."""
+    cfg = load_config(os.path.join(run_dir, "config.json"))
+    if batch_size:
+        cfg = cfg.replace(batch_size=batch_size)
+    cfg = cfg.replace(mesh_shape=(1, 1))
+    state = train.init_state(cfg, device=device)
+    ckpt = checkpoint or train.latest_checkpoint(os.path.join(run_dir, "ckpt"))
+    if ckpt is None:
+        raise FileNotFoundError(f"no checkpoint found under {run_dir}/ckpt")
+    state = train.restore_checkpoint(ckpt, state)
+    return cfg, state.model, state, ckpt
+
+
 class ServingEngine:
     """Request-level serving wrapper over a fixed-batch forward.
 
-    Construct with :meth:`from_model` (a built port model and a device).
+    Construct with :meth:`from_model` (a built port model and a device) or
+    :meth:`from_run` (a run directory).
     ``fn`` takes one numpy array per input, each ``(B, *item)``, and
     returns the output for those B items.
     """
@@ -97,9 +123,27 @@ class ServingEngine:
         """Serve ``model`` (built for ``cfg``) on ``device`` at batch size
         ``batch_size`` (default ``cfg.batch_size``).  Raises when
         ``device`` is ``cuda`` and there is no card."""
+        return cls._serving(model, cfg, resolve_device(device),
+                            batch_size or cfg.batch_size, {"source": "model"})
+
+    @classmethod
+    def from_run(cls, run_dir: str, batch_size: Optional[int] = None,
+                 checkpoint: Optional[str] = None,
+                 device: str | torch.device = "cuda") -> "ServingEngine":
+        """Serve a finished run: the model of ``run_dir/config.json`` with
+        the weights of ``checkpoint`` (default: the newest under
+        ``run_dir/ckpt``), on ``device``, at ``batch_size`` (default: the
+        run's).  Raises when ``device`` is ``cuda`` and there is no card."""
         dev = resolve_device(device)
+        cfg, model, _, ckpt = _restore_run(run_dir, batch_size, checkpoint,
+                                           device=dev)
+        return cls._serving(model, cfg, dev, cfg.batch_size,
+                            {"checkpoint": ckpt, "source": "run"})
+
+    @classmethod
+    def _serving(cls, model: nn.Module, cfg: Config, dev: torch.device,
+                 B: int, origin: dict) -> "ServingEngine":
         model = model.to(dev)
-        B = batch_size or cfg.batch_size
         serve = build_serve_fn(model, cfg)
 
         def fn(*arrays):
@@ -116,7 +160,7 @@ class ServingEngine:
             "device": str(dev),
             "pooling": resolve_pooling(cfg, dev),
             "classes": cfg.classes,
-            "source": "model",
+            **origin,
         }
         return cls(fn, manifest)
 

@@ -1,9 +1,10 @@
-"""Classify train and eval steps (port of the JAX package's
-``train/loops.py``).
+"""Train and eval steps of the classify and segment tasks (port of the
+JAX package's ``train/loops.py``).
 
 Batches are dicts of tensors on the model's device:
 ``{"pc": (B, N, D), "sn": (B, N, D) | None, "node": (B, M, D),
-   "node_knn_I": (B, M, som_k) | None, "label": (B,)}``.
+   "node_knn_I": (B, M, som_k) | None, "label": (B,),
+   "seg": (B, N) | None}``.
 
 The epoch that drives the BatchNorm momentum decay and the learning rate
 is ``state.step // steps_per_epoch``.  Random draws (point dropout, the
@@ -20,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..ops.iou import iou_per_shape
 from . import losses
 from .state import TrainState
 
@@ -93,3 +95,66 @@ def make_classify_steps(cfg: Config, steps_per_epoch: int
                 "loss_i": loss_i, "correct_i": correct_i, "score": score}
 
     return train_step, eval_step
+
+
+def make_segment_steps(cfg: Config, steps_per_epoch: int
+                       ) -> tuple[Callable, Callable]:
+    """(train_step, eval_step) for a part-segmentation model; ``label`` is
+    the shape category and ``seg`` the per-point part labels.
+
+    ``train_step(state, batch, generator)`` is as the classify one, with
+    the per-point cross-entropy and no point dropout; its metrics are the
+    loss and the per-point ``seg_accuracy``.
+
+    ``eval_step(state, batch)`` returns the mean ``loss``,
+    ``seg_accuracy`` and ``iou``, the per-item ``loss_i`` (mean over the
+    item's points), ``correct_i`` (its share of correct points) and
+    ``iou_i``, and the ``score`` (B, N, classes)."""
+    spe = max(steps_per_epoch, 1)
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None):
+        model = state.model
+        model.train()
+        epoch = state.step // spe
+        state.optimizer.zero_grad(set_to_none=True)
+        score, _ = model(batch["pc"], batch.get("sn"), batch["node"],
+                         batch["label"], batch.get("node_knn_I"),
+                         epoch=epoch, generator=generator)
+        loss = losses.cross_entropy_seg(score, batch["seg"])
+        loss.backward()
+        state.apply_gradients()
+        score = score.detach()
+        return state, {"loss": loss.detach(),
+                       "seg_accuracy": losses.seg_accuracy(score,
+                                                           batch["seg"])}
+
+    def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.eval()
+        with torch.no_grad():
+            score, _ = model(batch["pc"], batch.get("sn"), batch["node"],
+                             batch["label"], batch.get("node_knn_I"))
+        seg = batch["seg"]
+        loss_i = F.cross_entropy(score.transpose(1, 2), seg.long(),
+                                 reduction="none").mean(-1)          # (B,)
+        pred = score.argmax(-1)
+        correct_i = (pred == seg).float().mean(-1)
+        iou_i = iou_per_shape(pred, seg, batch["label"])
+        return {"loss": loss_i.mean(), "seg_accuracy": correct_i.mean(),
+                "iou": iou_i.mean(), "loss_i": loss_i,
+                "correct_i": correct_i, "iou_i": iou_i, "score": score}
+
+    return train_step, eval_step
+
+
+def make_steps(cfg: Config, steps_per_epoch: int
+               ) -> tuple[Callable, Callable]:
+    """(train_step, eval_step) for ``cfg.task``."""
+    makers = {"classify": make_classify_steps,
+              "retrieve": make_classify_steps,
+              "segment": make_segment_steps}
+    if cfg.task not in makers:
+        raise NotImplementedError(
+            f"task {cfg.task!r} is not ported yet (have {sorted(makers)})")
+    return makers[cfg.task](cfg, steps_per_epoch)

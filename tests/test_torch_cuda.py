@@ -252,3 +252,163 @@ def test_first_pointnet_gradient_through_kernel(cuda_device):
     w = "encoder.first_pointnet.PointLayer_0.Dense_0.weight"
     assert float(kernel[w].abs().max()) > 1e-3
     _assert_grads_close(kernel, scatter)
+
+
+# ---------------------------------------------------------------------------
+# the part segmenter, its gathers and the run round trip on the card
+# ---------------------------------------------------------------------------
+
+def _seg_cfg(**over):
+    return config.tiny_test().replace(task="segment", classes=50,
+                                      batch_size=4, **over)
+
+
+def _seg_batch(cfg, device, seed=0):
+    rs = np.random.RandomState(seed)
+    B, N, M = 4, cfg.input_pc_num, cfg.node_num
+    pc = rs.randn(B, N, 3).astype(np.float32)
+    batch = {"pc": pc, "sn": rs.randn(B, N, 3).astype(np.float32),
+             "node": pc[:, :M] + 0.1 * rs.randn(B, M, 3).astype(np.float32),
+             "label": rs.randint(0, 16, B).astype(np.int32),
+             "seg": rs.randint(0, cfg.classes, (B, N))}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gathers_on_card_match_cpu(cuda_device, dtype):
+    """``permute_points`` exactly; ``gather_by_segment`` forward exactly
+    and its backward within one bf16 spacing (float32: 1e-5): a float32
+    sum over a node's ~50 rows in another order, rounded once."""
+    from sonet_torch.ops import gather_by_segment, one_hot, permute_points
+    rs = np.random.RandomState(0)
+    B, N, M, C = 2, 400, 8, 64
+    ids = np.sort(rs.randint(0, M, (B, N)), axis=1).astype(np.int32)
+    perm = np.stack([rs.permutation(N) for _ in range(B)]).astype(np.int32)
+    inv = np.argsort(perm, axis=1).astype(np.int32)
+    table = rs.randn(B, M, C).astype(np.float32)
+    x = rs.randn(B, N, C).astype(np.float32)
+    g = rs.randn(B, N, C).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        t = lambda a: torch.from_numpy(a).to(dev)            # noqa: E731
+        tab = t(table).requires_grad_()
+        pts = t(x).to(dtype).requires_grad_()
+        rows = gather_by_segment(tab, t(ids), one_hot(t(ids), M, dtype))
+        moved = permute_points(pts, t(perm), t(inv))
+        rows.backward(t(g).to(dtype))
+        moved.backward(t(g).to(dtype))
+        out[str(dev)] = [a.detach().float().cpu()
+                         for a in (rows, moved, pts.grad, tab.grad)]
+    for got, want in list(zip(out[str(cuda_device)], out["cpu"]))[:3]:
+        assert torch.equal(got, want)
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(out[str(cuda_device)][3], out["cpu"][3],
+                               rtol=tol, atol=1e-5)
+
+
+def test_segmenter_on_card_matches_cpu(cuda_device):
+    cfg = _seg_cfg()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    gpu = build_model(cfg, device=cuda_device, seed=0)
+    names = ("pc", "sn", "node", "label")
+    before = smw.windowed_vals.launches
+    with torch.no_grad():
+        want, _ = cpu(*(_seg_batch(cfg, "cpu")[n] for n in names))
+        got, enc = gpu(*(_seg_batch(cfg, cuda_device)[n] for n in names))
+    assert smw.windowed_vals.launches == before + 1
+    assert enc.inv_perm is not None                  # the sorted pipeline
+    assert got.shape == (4, cfg.input_pc_num, 50)
+    # float32 on both; cuBLAS sums in another order than the CPU
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_segment_train_step_on_card_matches_cpu(cuda_device):
+    """One float32 train step: the loss, one kernel launch, a gradient for
+    every trainable tensor.  The gradients themselves are compared under
+    the running statistics.  With batch statistics the segmenter's
+    gradient is no continuous function of its inputs: a relative change
+    of 2e-7 in the weights, the size of float32 rounding, flips ReLUs and
+    pooling winners that BatchNorm has centred on zero and moves single
+    gradients by up to 18% of a tensor's largest entry on the CPU alone
+    (``tools/torch_grad_sensitivity.py``, which shares this batch)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _seg_cfg(dropout=0.0)
+    step, _ = train.make_steps(cfg, steps_per_epoch=10)
+    metrics, grads = {}, {}
+    for dev in ("cpu", cuda_device):
+        state = train.init_state(cfg, device=dev, seed=0, steps_per_epoch=10)
+        batch = _seg_batch(cfg, dev)
+        model = state.model.eval()               # running statistics
+        score, _ = model(*(batch[n] for n in ("pc", "sn", "node", "label")),
+                         epoch=0)
+        train.losses.cross_entropy_seg(score, batch["seg"]).backward()
+        grads[str(dev)] = _grads(model)
+        before = smw.windowed_vals.launches
+        state, metrics[str(dev)] = step(state, batch, None)
+        assert smw.windowed_vals.launches - before == (
+            1 if dev == cuda_device else 0)
+        stopped = chip_smoke._stopped_biases(model)
+        assert all((p.grad is None) == (n in stopped)
+                   for n, p in model.named_parameters())
+    torch.testing.assert_close(metrics[str(cuda_device)]["loss"].cpu(),
+                               metrics["cpu"]["loss"], rtol=1e-4, atol=1e-5)
+    _assert_grads_close(grads[str(cuda_device)], grads["cpu"])
+    w = "segmenter.layer1.Dense_0.weight"
+    assert float(grads[str(cuda_device)][w].abs().max()) > 1e-4
+
+
+def test_run_round_trip_on_card(cuda_device, tmp_path):
+    """A run written on the card restores bit for bit onto the card and
+    onto the CPU, Adam's moments beside their parameters and its step
+    counters where a live optimizer keeps them; ``from_run`` answers as
+    ``from_model``; ``restore_encoder`` sets only ``encoder.*``."""
+    from sonet_torch.serving import ServingEngine
+    cfg = _seg_cfg(dropout=0.6)
+    step, _ = train.make_steps(cfg, steps_per_epoch=10)
+    state = train.init_state(cfg, device=cuda_device, seed=0)
+    batch = _seg_batch(cfg, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for _ in range(2):
+        state, _ = step(state, batch, gen)
+    cfg.save(str(tmp_path / "config.json"))
+    path = train.save_checkpoint(str(tmp_path / "ckpt"), state, state.step)
+    for dev in (cuda_device, "cpu"):
+        fresh = train.restore_checkpoint(path, train.init_state(
+            cfg, device=dev, seed=9))
+        assert fresh.step == 2
+        for k, v in state.model.state_dict().items():
+            r = fresh.model.state_dict()[k]
+            assert r.device.type == torch.device(dev).type, k
+            assert torch.equal(r.cpu(), v.cpu()), k
+        want = state.optimizer.state_dict()["state"]
+        got = fresh.optimizer.state_dict()["state"]
+        assert list(got) == list(want)
+        for i, entry in want.items():
+            for name, t in entry.items():
+                r = got[i][name]
+                assert torch.equal(r.cpu(), t.cpu()), (i, name)
+                where = "cpu" if name == "step" else torch.device(dev).type
+                assert r.device.type == where, (i, name)
+    # the restored state trains on as the original does
+    twin = train.restore_checkpoint(path, train.init_state(
+        cfg, device=cuda_device, seed=9))
+    losses = [float(step(s, batch, torch.Generator(
+        device=cuda_device).manual_seed(5))[1]["loss"]) for s in (state, twin)]
+    assert losses[0] == losses[1]
+
+    req = {k: v.cpu().numpy() for k, v in batch.items() if k != "seg"}
+    a = ServingEngine.from_run(str(tmp_path), device=cuda_device).predict(req)
+    b = ServingEngine.from_model(fresh.model.to(cuda_device), cfg,
+                                 device=cuda_device).predict(req)
+    assert a.shape == (4, cfg.input_pc_num, 50) and np.array_equal(a, b)
+
+    cls_state = train.init_state(config.tiny_test(), device=cuda_device,
+                                 seed=3)
+    cls_path = train.save_checkpoint(str(tmp_path / "cls"), cls_state, 0)
+    before = {k: v.clone() for k, v in twin.model.state_dict().items()}
+    train.restore_encoder(cls_path, twin)
+    for k, v in twin.model.state_dict().items():
+        if k.startswith("encoder."):
+            assert torch.equal(v, cls_state.model.state_dict()[k]), k
+        else:
+            assert torch.equal(v, before[k]), k

@@ -87,7 +87,7 @@ class TestServingEngine:
             engine.predict({k: v[:0] for k, v in req.items()})
 
     def test_signature_and_buckets_match_jax(self):
-        for preset in ("modelnet40", "mnist", "tiny_test"):
+        for preset in ("modelnet40", "mnist", "tiny_test", "shapenetpart"):
             assert (tserving.input_signature(getattr(tcfg, preset)(), 3)
                     == jserving.input_signature(getattr(jcfg, preset)(), 3))
         for b in (1, 6, 8, 13):
@@ -118,8 +118,11 @@ class TestDevice:
             resolve_pooling(cfg.replace(pooling="bogus"), "cpu")
 
     def test_unported_task_raises(self):
-        with pytest.raises(NotImplementedError, match="segment"):
-            build_model(tcfg.shapenetpart(), device="cpu")
+        with pytest.raises(NotImplementedError, match="autoencode"):
+            build_model(tcfg.autoencoder(), device="cpu")
+        model = build_model(tcfg.modelnet40(), device="cpu")
+        with pytest.raises(NotImplementedError, match="autoencode"):
+            tserving.build_serve_fn(model, tcfg.autoencoder())
 
 
 class TestConfig:
@@ -158,7 +161,9 @@ class TestImportBoundary:
 
     def test_package_import_loads_no_jax(self):
         code = ("import sys, sonet_torch, sonet_torch.serving, "
-                "sonet_torch.convert, sonet_torch.ops.cuda\n"
+                "sonet_torch.convert, sonet_torch.ops.cuda, "
+                "sonet_torch.ops.iou, sonet_torch.nn.heads, "
+                "sonet_torch.train.checkpoints\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'flax', 'optax', 'sonet_tpu')]\n"
                 "print(bad); sys.exit(1 if bad else 0)")
