@@ -53,13 +53,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    it answering exactly as ``from_model`` on the trained model;
    ``restore_encoder`` from phase 5's classifier checkpoint setting
    exactly the ``encoder.*`` entries of a segmenter state;
-9. a JSON line of every kernel with its launches on each of the four
+9. SOM: ``som.fit`` of 64 clouds of 1024 points on the card, 8x8 nodes,
+   both schedules: finite nodes inside the clouds' bounds; one
+   ``batch_update`` held against the CPU's; the fit's quantization error
+   (the mean distance of a point to its nearest node) held against a CPU
+   fit's and against the initial nodes'; the same bits with
+   ``allow_tf32`` on and off and from one call to the next; the fit timed;
+10. autoencoder serving: phase 4 for the Chamfer autoencoder
+   (``config.autoencoder()``, full width), on SOM nodes fitted on the
+   card from the same clouds; reconstructions are (B', 1280, 3);
+11. autoencoder training: phase 5 for the autoencoder (the multi-scale
+   Chamfer loss), on fitted nodes; the gradients of the first PointNet
+   and of the decoder held against the scatter pooling path with the
+   running statistics; the 64x64 decoder stage that nothing reads gets no
+   gradient and does not move; then phase 8's round trip on the trained
+   autoencoder's run;
+12. a JSON line of every kernel with its launches on each of the six
    paths, error and times;
-10. last line: {"ok": true, "device": {...}}.
+13. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
-and train step to ``DIR/profile_<forward|train_step>_<task>.txt`` and
-prints the device-busy shares.
+and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
+autoencoder's decoder alone (``profile_forward_decoder.txt``) and of each
+SOM fit (``profile_som_fit_<schedule>.txt``), and prints the device-busy
+shares.
 """
 
 from __future__ import annotations
@@ -101,8 +118,8 @@ GRAD_F32_RTOL, GRAD_F32_ATOL = 1e-3, 1e-6
 GRAD_POOL_CASES = (("bfloat16", False, 2e-2), ("float32", False, 1e-4),
                    ("float32", True, 5e-2))
 # what each task's gradient comparison covers: the tensors under these
-# prefixes, in these cases.  The segmenter's are held with the running
-# statistics only.  In the classifier the first PointNet's last bias has a
+# prefixes, in these cases.  The segmenter's and the autoencoder's are held
+# with the running statistics only.  In the classifier the first PointNet's last bias has a
 # true gradient of 0 (the KNN layer's BatchNorm cancels a constant shift
 # of the pooled features, its only reader), so both paths give it
 # rounding noise and it is left out; in the segmenter ``layer1`` reads
@@ -112,7 +129,17 @@ GRAD_CHECKS = {
                  ("encoder.first_pointnet.PointLayer_3.Dense_0.bias",)),
     "segment": (("encoder.first_pointnet.", "segmenter.layer1."),
                 GRAD_POOL_CASES[:2], ()),
+    "autoencode": (("encoder.first_pointnet.", "decoder."),
+                   GRAD_POOL_CASES[:2], ()),
 }
+# the decoder stage that is read only with 4096 conv points
+UNREAD_STAGE = ("decoder.conv_decoder.UpConv_5.",
+                "decoder.conv_decoder.ConvToPC_2.")
+# SOM on the card vs the CPU: one update within 1e-5 (float32 sums over a
+# node's points in another order); a whole fit by its quantization error,
+# within 1%
+SOM_UPDATE_TOL = 1e-5
+SOM_QE_RTOL = 1e-2
 TRAIN_STEPS = 10
 
 
@@ -590,11 +617,22 @@ def _check_segment_argmax(torch, gen, ids, M):
             "note": "on no path of the model; held in phase 3 only"}
 
 
+def _fit_nodes(pc, cfg):
+    """SOM nodes of the clouds ``pc`` (n, N, 3), fitted on the card with
+    the schedule the published datasets were built with."""
+    from sonet_torch import som
+    som_cfg = som.SOMConfig(rows=cfg.rows, cols=cfg.cols, dim=pc.shape[-1],
+                            schedule="prep")
+    return som.fit(pc, som_cfg, device="cuda").cpu().numpy()
+
+
 def _clouds(np, n_items, cfg, seed):
-    """Points on random ellipsoids with their normals, and SOM nodes
-    picked among the points, from ``seed``; for a segment configuration
-    also each cloud's shape category (``label``) and per-point part labels
-    (``seg``): the category's parts as bands along the first axis."""
+    """Points on random ellipsoids with their normals, and SOM nodes, from
+    ``seed``: nodes picked among the points, or for an autoencode
+    configuration fitted to each cloud on the card; for a segment
+    configuration also each cloud's shape category (``label``) and
+    per-point part labels (``seg``): the category's parts as bands along
+    the first axis."""
     rs = np.random.RandomState(seed)
     N, M = cfg.input_pc_num, cfg.node_num
     u = rs.randn(n_items, N, 3)
@@ -607,6 +645,8 @@ def _clouds(np, n_items, cfg, seed):
     node = np.take_along_axis(pc, pick[..., None], axis=1)
     out = {"pc": pc.astype(np.float32), "sn": sn.astype(np.float32),
            "node": node.astype(np.float32)}
+    if cfg.task == "autoencode":
+        out["node"] = _fit_nodes(out["pc"], cfg)
     if cfg.task == "segment":
         from sonet_torch.ops.iou import PART_TABLE, PART_VALID
         label = rs.randint(0, len(PART_TABLE), n_items)
@@ -624,22 +664,35 @@ def _input_names(cfg):
 
 
 def _score_shape(cfg, n_items):
+    """The shape of what the task serves for ``n_items`` clouds."""
     if cfg.task == "segment":
         return (n_items, cfg.input_pc_num, cfg.classes)
+    if cfg.task == "autoencode":
+        return (n_items, cfg.output_fc_pc_num + cfg.output_conv_pc_num, 3)
     return (n_items, cfg.classes)
+
+
+def _served(cfg, model_out):
+    """What the task serves, of a model's ``(output, encoder output)``:
+    the scores, or the autoencoder's reconstructed cloud."""
+    out = model_out[0]
+    return out.pc if cfg.task == "autoencode" else out
 
 
 def _describe(cfg):
     return (f"{cfg.task} ({cfg.dataset}): B={cfg.batch_size}, "
             f"N={cfg.input_pc_num}, M={cfg.node_num}, k={cfg.k}, "
             f"som_k={cfg.som_k} ({cfg.som_k_type}), F={cfg.feature_num}, "
-            f"classes={cfg.classes}, {cfg.compute_dtype}, dropout "
-            f"{cfg.dropout}")
+            + (f"output points {cfg.output_fc_pc_num} + "
+               f"{cfg.output_conv_pc_num}" if cfg.task == "autoencode"
+               else f"classes={cfg.classes}")
+            + f", {cfg.compute_dtype}, dropout {cfg.dropout}")
 
 
 def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
-    """Serve ``cfg``'s model (the ModelNet40 classifier or the ShapeNetPart
-    part segmenter) on the card; returns the launches of every kernel
+    """Serve ``cfg``'s model (the ModelNet40 classifier, the ShapeNetPart
+    part segmenter or the Chamfer autoencoder) on the card; returns the
+    launches of every kernel
     during the served requests.  Each kernel named in ``on_path`` must
     launch for every request.  ``small`` is the float32 configuration
     held against the CPU."""
@@ -691,7 +744,7 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
     scatter.load_state_dict(model.state_dict())
     dev_in = [torch.from_numpy(inputs[n][:8]).cuda() for n in names]
     with torch.inference_mode():
-        ref = scatter(*dev_in)[0]
+        ref = _served(cfg, scatter(*dev_in))
     ref = ref.float().cpu().numpy()
     diff = float(np.abs(ref - outputs[8]).max())
     scale = max(1.0, float(np.abs(ref).max()))
@@ -706,8 +759,8 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
     on_cpu = build_model(small, device="cpu", seed=0)
     on_card = build_model(small, device="cuda", seed=0)
     with torch.inference_mode():
-        want = on_cpu(*small_in)[0]
-        got = on_card(*(a.cuda() for a in small_in))[0].cpu()
+        want = _served(small, on_cpu(*small_in))
+        got = _served(small, on_card(*(a.cuda() for a in small_in))).cpu()
     diff = float((got - want).abs().max())
     log(f"small float32 {small.task} model, card vs CPU: max abs diff {diff} "
         f"(tolerance {SMALL_F32_TOL} x max(1, max |score|))")
@@ -735,15 +788,34 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
 
     if profile_dir:
         profile_run(forward, profile_dir, f"forward_{cfg.task}")
+        if cfg.task == "autoencode":
+            with torch.inference_mode():
+                feature = model.encoder(*dev_in).feature
+
+            def decode():
+                with torch.inference_mode():
+                    model.decoder(feature)
+
+            profile_run(decode, profile_dir, "forward_decoder")
     return launches
 
 
-def _stopped_biases(model):
-    """Names of the biases that a BatchNorm follows: they get no gradient
-    by design (``nn.layers.Dense.stop_bias_grad``)."""
+def _no_gradient(model, cfg):
+    """Names of the parameters that get no gradient by design: the biases
+    that a BatchNorm follows (``nn.layers.Dense.stop_bias_grad``) and,
+    where the autoencoder emits no 4096 conv points, the 64x64 decoder
+    stage that nothing reads."""
     from sonet_torch.nn.layers import Dense
-    return {f"{n}.bias" for n, m in model.named_modules()
-            if isinstance(m, Dense) and m.stop_bias_grad}
+    names = {f"{n}.bias" for n, m in model.named_modules()
+             if isinstance(m, Dense) and m.stop_bias_grad}
+    if cfg.task == "autoencode" and cfg.output_conv_pc_num != 4096:
+        unread = {n for n, _ in model.named_parameters()
+                  if n.startswith(UNREAD_STAGE)}
+        if len(unread) != 10:     # conv kernel, bias, 2 x (norm, dense) pairs
+            raise AssertionError(f"the unread stage has {len(unread)} "
+                                 f"parameters, want 10")
+        names |= unread
+    return names
 
 
 def _rel_err(a, b) -> float:
@@ -756,6 +828,8 @@ def _train_loss(model, cfg, batch, generator):
     from sonet_torch import train
     score, _ = model(*(batch[n] for n in _input_names(cfg)), epoch=0,
                      generator=generator)
+    if cfg.task == "autoencode":
+        return train.loops._ae_loss(cfg, score, batch["pc"])[0]
     if cfg.task == "segment":
         return train.losses.cross_entropy_seg(score, batch["seg"])
     return train.losses.cross_entropy(score, batch["label"])
@@ -783,12 +857,12 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
     log(f"training {_describe(cfg)}, Adam lr {cfg.lr}, "
         f"pooling={resolve_pooling(cfg, dev)}")
     clouds = _clouds(np, 3 * B, cfg, seed=3)
-    if cfg.task != "segment":
+    if cfg.task == "classify":
         clouds["label"] = np.random.RandomState(4).randint(0, cfg.classes,
                                                            3 * B)
     batches = [{n: torch.from_numpy(a[i * B:(i + 1) * B]).to(dev)
                 for n, a in clouds.items()} for i in range(3)]
-    stopped = _stopped_biases(model)
+    stopped = _no_gradient(model, cfg)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     _pooling_gradient_checks(torch, cfg, batches[0], model.state_dict())
@@ -840,13 +914,15 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
     moved = [n for n in stopped if not torch.equal(params[n].detach(),
                                                    before[n])]
     log(f"after {TRAIN_STEPS} steps: {len(params) - len(stopped)} trainable "
-        f"tensors moved but {unmoved}; the {len(stopped)} biases a "
-        f"BatchNorm follows stayed but {moved}")
+        f"tensors moved but {unmoved}; the {len(stopped)} tensors with no "
+        f"gradient (biases a BatchNorm follows, a decoder stage nothing "
+        f"reads) stayed but {moved}")
     if unmoved or moved:
         raise AssertionError("parameters moved where they should not, or "
                              "did not where they should")
     ev = eval_step(state, batches[0])
-    if ev["score"].shape != _score_shape(cfg, B) or not all(
+    served = "predicted_pc" if cfg.task == "autoencode" else "score"
+    if ev[served].shape != _score_shape(cfg, B) or not all(
             bool(torch.isfinite(v).all()) for v in ev.values()):
         raise AssertionError("eval_step: bad scores or metrics")
     log("eval_step: " + ", ".join(f"{k} {float(v)}" for k, v in ev.items()
@@ -934,7 +1010,7 @@ def _train_small_card_vs_cpu(torch, np, train, cfg):
     fail by the luck of the batch."""
     step, _ = train.make_steps(cfg, steps_per_epoch=10)
     small = _clouds(np, 4, cfg, seed=2)
-    if cfg.task != "segment":
+    if cfg.task == "classify":
         small["label"] = np.random.RandomState(5).randint(0, cfg.classes, 4)
     running = cfg.task == "segment"
 
@@ -981,9 +1057,9 @@ def _same_tensors(torch, got, want, device) -> list:
 
 
 def phase_round_trip(cfg, state, run_dir, path, classifier_ckpt):
-    """Make ``run_dir``, which holds the trained segmenter ``state``'s
-    checkpoint ``path`` under ``ckpt/``, a whole run; restore it, serve
-    it, and transfer the classifier's encoder into it."""
+    """Make ``run_dir``, which holds the trained ``state``'s checkpoint
+    ``path`` under ``ckpt/``, a whole run; restore it, serve it, and
+    transfer the classifier's encoder into it."""
     import numpy as np
     import torch
     from sonet_torch import train
@@ -1030,7 +1106,7 @@ def phase_round_trip(cfg, state, run_dir, path, classifier_ckpt):
             m["checkpoint"] != path):
         raise AssertionError("from_run does not answer as from_model")
 
-    # the classifier's encoder into the segmenter state (the transfer path)
+    # the classifier's encoder into this state (the transfer path)
     saved = torch.load(classifier_ckpt, map_location=dev, weights_only=True)
     before = {k: v.clone() for k, v in fresh.model.state_dict().items()}
     train.restore_encoder(classifier_ckpt, fresh)
@@ -1045,6 +1121,88 @@ def phase_round_trip(cfg, state, run_dir, path, classifier_ckpt):
         f"{len(after) - len(enc)} head entries, touched {touched}")
     if wrong or touched or not changed:
         raise AssertionError("restore_encoder set the wrong entries")
+
+
+def _quantization_error(torch, x, nodes) -> float:
+    """The mean distance of a point to its nearest node; x (B, N, C),
+    nodes (B, M, C) on one device."""
+    d = (x[:, :, None, :] - nodes[:, None, :, :]).norm(dim=-1)
+    return float(d.min(-1).values.mean())
+
+
+def phase_som(profile_dir=None):
+    """``som.fit`` on the card: 64 clouds of 1024 points, 8x8 nodes, both
+    schedules, held against the CPU's."""
+    import numpy as np
+    import torch
+    from sonet_torch import config, som
+
+    n_cpu = 16          # the CPU fits this many of the clouds (each cloud's
+    #                     fit is its own)
+    shape = config.autoencoder()
+    x = _clouds(np, 64, shape.replace(task="classify"), seed=11)["pc"]
+    x_card = torch.from_numpy(x).cuda()
+    x_cpu = torch.from_numpy(x[:n_cpu])
+    lo, hi = float(x.min()), float(x.max())
+    log(f"SOM: {x.shape[0]} clouds of {x.shape[1]} points, "
+        f"{shape.rows}x{shape.cols} nodes, coordinates in [{lo:.3f}, "
+        f"{hi:.3f}]")
+    for schedule in ("prep", "online"):
+        cfg = som.SOMConfig(rows=shape.rows, cols=shape.cols, dim=3,
+                            schedule=schedule)
+        nodes = som.fit(x_card, cfg, device="cuda")
+        if nodes.shape != (len(x), cfg.node_num, 3) or nodes.dtype != torch.float32 or (
+                not nodes.is_cuda) or not bool(torch.isfinite(nodes).all()):
+            raise AssertionError(f"som.fit ({schedule}): bad nodes "
+                                 f"{tuple(nodes.shape)} {nodes.dtype}")
+        if float(nodes.min()) < lo or float(nodes.max()) > hi:
+            raise AssertionError(f"som.fit ({schedule}): nodes outside the "
+                                 f"clouds' bounds")
+        # one update, from the initial nodes and from the fitted ones
+        init = som.init_nodes(cfg, n_cpu, device="cpu")
+        for name, start in (("initial", init), ("fitted", nodes[:n_cpu].cpu())):
+            want = som.batch_update(start, x_cpu, 0.5, 0.4, cfg)
+            got = som.batch_update(start.cuda(), x_card[:n_cpu], 0.5, 0.4, cfg)
+            diff = float((got.cpu() - want).abs().max())
+            log(f"som.batch_update ({schedule}) from the {name} nodes, card "
+                f"vs CPU: max abs diff {diff} (tolerance {SOM_UPDATE_TOL})")
+            if diff > SOM_UPDATE_TOL:
+                raise AssertionError("som.batch_update on the card disagrees "
+                                     "with the CPU")
+        # the whole fit, by what it is for
+        on_cpu = som.fit(x_cpu, cfg, device="cpu")
+        q_init = _quantization_error(torch, x_cpu, init)
+        q_cpu = _quantization_error(torch, x_cpu, on_cpu)
+        q_card = _quantization_error(torch, x_card[:n_cpu], nodes[:n_cpu])
+        diff = float((nodes[:n_cpu].cpu() - on_cpu).abs().max())
+        log(f"som.fit ({schedule}), {n_cpu} clouds, card vs CPU: quantization "
+            f"error {q_card} vs {q_cpu} (initial nodes {q_init}; tolerance "
+            f"{SOM_QE_RTOL} x the CPU's), largest node difference {diff}")
+        if abs(q_card - q_cpu) > SOM_QE_RTOL * q_cpu or not q_card < q_init:
+            raise AssertionError("som.fit on the card disagrees with the CPU, "
+                                 "or does not bring the nodes to the points")
+        # true float32 whatever the matmul switch says, and no atomics
+        again = som.fit(x_card, cfg, device="cuda")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with_tf32 = som.fit(x_card, cfg, device="cuda")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        same = torch.equal(with_tf32, nodes), torch.equal(again, nodes)
+        log(f"som.fit ({schedule}): same bits with allow_tf32 on {same[0]}, "
+            f"same bits from a second call {same[1]}")
+        if not all(same):
+            raise AssertionError("som.fit depends on allow_tf32 or differs "
+                                 "from call to call")
+        n_updates = len(som.som._schedule(cfg)[0])
+        fit_ms = time_ms(lambda: som.fit(x_card, cfg, device="cuda"), reps=5)
+        log(f"som.fit ({schedule}) of {len(x)} clouds on the card: "
+            f"{fit_ms:.4f} ms ({n_updates} updates, "
+            f"{fit_ms / n_updates:.4f} ms an update, "
+            f"{len(x) / fit_ms * 1e3:.1f} clouds/s)")
+        if profile_dir:
+            profile_run(lambda: som.fit(x_card, cfg, device="cuda"),
+                        profile_dir, f"som_fit_{schedule}")
 
 
 def profile_run(fn, out_dir, what):
@@ -1076,7 +1234,8 @@ def profile_run(fn, out_dir, what):
         f.write(events.table(sort_by="self_device_time_total", row_limit=80))
     log(f"profile: 5 x {what}, wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} under the "
-        f"profiler); table in {path}")
+        f"profiler) in {sum(e.count for e in kernels) // 5} kernels, copies "
+        f"and memsets a call; table in {path}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
         log(f"  {e.self_device_time_total / 5e3:9.4f} ms/{what} "
             f"{e.count // 5:4d}x  {e.key[:100]}")
@@ -1115,8 +1274,10 @@ def main(argv=None) -> int:
     on_path = ("segment_max_window",)       # kernel 2 is on no path
     from sonet_torch import config
     classify, segment = config.modelnet40(), config.shapenetpart()
+    autoenc = config.autoencoder()
     small = config.tiny_test()
     small_seg = small.replace(task="segment", classes=segment.classes)
+    small_ae = small.replace(task="autoencode")
     by_path = {}
     with tempfile.TemporaryDirectory() as runs:
         by_path["serve"] = phase_serve(classify, small, counters, on_path,
@@ -1132,6 +1293,14 @@ def main(argv=None) -> int:
             os.path.join(seg_run, "ckpt"), args.profile)
         phase_round_trip(segment, seg_state, seg_run, seg_ckpt,
                          classifier_ckpt)
+        phase_som(args.profile)
+        by_path["serve_autoencode"] = phase_serve(autoenc, small_ae, counters,
+                                                  on_path, args.profile)
+        ae_run = os.path.join(runs, "autoencode")
+        by_path["train_autoencode"], ae_state, ae_ckpt = phase_train(
+            autoenc, small_ae.replace(dropout=0.0), counters, on_path,
+            os.path.join(ae_run, "ckpt"), args.profile)
+        phase_round_trip(autoenc, ae_state, ae_run, ae_ckpt, classifier_ckpt)
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

@@ -3,7 +3,7 @@ NVIDIA Hopper GPU.
 
 The port of the JAX package that sits beside it in this repository.
 Module names mirror the JAX package (``config``, ``ops``, ``nn``,
-``models``, ``serving``, ``train``) so each module's counterpart is easy
+``models``, ``serving``, ``train``, ``som``) so each module's counterpart is easy
 to find; the JAX package's Pallas kernels become CUDA C++ sources under
 ``csrc/``, built with ``nvcc`` at first use (``ops/cuda``).
 
@@ -11,7 +11,7 @@ Layout convention: channel-last ``(B, N, C)`` at every public function,
 as in the JAX package, so the two can be compared like with like.
 
 Entry points (``models.build_model``, ``serving.ServingEngine``,
-``train.init_state``) run on ``cuda`` unless the caller passes
+``train.init_state``, ``som.fit``) run on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for ``cuda`` on a host without a card raises
 instead of falling back.
 """
@@ -20,7 +20,7 @@ __version__ = "0.1.0"
 
 # subpackages import lazily on attribute access, as in the JAX package
 _LAZY = ("config", "device", "ops", "nn", "models", "convert", "serving",
-         "train")
+         "train", "som")
 
 
 def __getattr__(name):

@@ -10,9 +10,10 @@ with ``/`` its keys read like
 
 The port's modules carry the same path names, so a key maps to a
 ``state_dict`` entry by its path and its leaf: a dense ``kernel``
-(in, out) becomes ``weight`` (out, in); BatchNorm ``scale`` / ``bias``
-become ``weight`` / ``bias``; ``mean`` / ``var`` become the
-``running_mean`` / ``running_var`` buffers.
+(in, out) becomes ``weight`` (out, in); a convolution ``kernel``
+(kh, kw, in, out) becomes ``weight`` (out, in, kh, kw); BatchNorm and
+InstanceNorm ``scale`` / ``bias`` become ``weight`` / ``bias``; ``mean`` /
+``var`` become the ``running_mean`` / ``running_var`` buffers.
 """
 
 from __future__ import annotations
@@ -25,6 +26,22 @@ from torch import nn
 
 _PARAM_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
+_NORMS = ("BatchNorm", "InstanceNorm")
+
+
+def _kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    """A JAX ``kernel`` in the port's layout: (in, out) -> (out, in),
+    (kh, kw, in, out) -> (out, in, kh, kw)."""
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    return arr.T
+
+
+def _kernel_to_jax(arr: np.ndarray) -> np.ndarray:
+    """The converse of ``_kernel_to_torch``."""
+    if arr.ndim == 4:
+        return arr.transpose(2, 3, 1, 0)
+    return arr.T
 
 
 def flatten(tree: Mapping, sep: str = "/") -> dict[str, np.ndarray]:
@@ -40,7 +57,7 @@ def flatten(tree: Mapping, sep: str = "/") -> dict[str, np.ndarray]:
 
 
 def _torch_key(key: str) -> tuple[str, bool]:
-    """JAX variable key -> (state_dict key, whether to transpose)."""
+    """JAX variable key -> (state_dict key, whether it is a kernel)."""
     parts = key.split("/")
     if len(parts) < 3:
         raise KeyError(f"unexpected variable key {key!r}")
@@ -62,12 +79,12 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> None:
     seen = set()
     with torch.no_grad():
         for key, arr in flat.items():
-            tkey, transpose = _torch_key(key)
+            tkey, is_kernel = _torch_key(key)
             if tkey not in state:
                 raise KeyError(f"variable {key!r} has no place in the model "
                                f"(looked for {tkey!r})")
-            if transpose:
-                arr = arr.T
+            if is_kernel:
+                arr = _kernel_to_torch(arr)
             dst = state[tkey]
             if tuple(arr.shape) != tuple(dst.shape):
                 raise ValueError(f"variable {key!r}: shape {arr.shape}, model "
@@ -80,21 +97,21 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> None:
 
 
 def _jax_key(tkey: str) -> tuple[str, bool]:
-    """``state_dict`` key -> (flattened JAX variable key, whether to
-    transpose)."""
+    """``state_dict`` key -> (flattened JAX variable key, whether it is a
+    kernel)."""
     *path, leaf = tkey.split(".")
     if leaf.startswith("running_"):
         return "/".join(["batch_stats", *path, leaf[len("running_"):]]), False
     if leaf == "bias":
         return "/".join(["params", *path, "bias"]), False
-    if path[-1].startswith("BatchNorm"):
+    if path[-1].startswith(_NORMS):
         return "/".join(["params", *path, "scale"]), False
     return "/".join(["params", *path, "kernel"]), True
 
 
-def _to_numpy(t: torch.Tensor, transpose: bool) -> np.ndarray:
+def _to_numpy(t: torch.Tensor, is_kernel: bool) -> np.ndarray:
     a = t.detach().cpu().float().numpy()
-    return np.ascontiguousarray(a.T if transpose else a)
+    return np.ascontiguousarray(_kernel_to_jax(a) if is_kernel else a)
 
 
 def to_jax_variables(model: nn.Module) -> dict[str, np.ndarray]:
@@ -102,8 +119,8 @@ def to_jax_variables(model: nn.Module) -> dict[str, np.ndarray]:
     flattened JAX variable keys."""
     out = {}
     for tkey, t in model.state_dict().items():
-        key, transpose = _jax_key(tkey)
-        out[key] = _to_numpy(t, transpose)
+        key, is_kernel = _jax_key(tkey)
+        out[key] = _to_numpy(t, is_kernel)
     return out
 
 
@@ -115,7 +132,7 @@ def gradients_to_jax(model: nn.Module) -> dict[str, np.ndarray]:
     follows) reads zeros, as its cotangent is zero in the JAX package."""
     out = {}
     for tkey, p in model.named_parameters():
-        key, transpose = _jax_key(tkey)
+        key, is_kernel = _jax_key(tkey)
         g = p.grad if p.grad is not None else torch.zeros_like(p)
-        out[key] = _to_numpy(g, transpose)
+        out[key] = _to_numpy(g, is_kernel)
     return out

@@ -1,10 +1,10 @@
 """Task models (port of the JAX package's ``models.py``): encoder + head.
 
 The module tree keeps the JAX package's top-level split (``encoder`` /
-``classifier`` / ``segmenter``), so per-subnetwork checkpoints, the
-encoder-only transfer and per-subnetwork learning rates map one to one.
-The classifier and the part segmenter are ported; retrieval serves the
-classifier's scores as keys.  Train or eval follows
+``classifier`` / ``segmenter`` / ``decoder``), so per-subnetwork
+checkpoints, the encoder-only transfer and per-subnetwork learning rates
+map one to one.  Retrieval serves the classifier's scores as keys.  Train
+or eval follows
 ``nn.Module.training``.
 """
 
@@ -17,6 +17,7 @@ from torch import nn
 
 from .config import Config
 from .device import resolve_device
+from .nn.decoder import Decoder, DecoderOutput
 from .nn.encoder import Encoder, EncoderOutput
 from .nn.heads import ClassifierHead, SegmenterHead
 
@@ -59,10 +60,31 @@ class SegmenterModel(nn.Module):
         return self.segmenter(enc, label, epoch, generator), enc
 
 
+class AutoencoderModel(nn.Module):
+    """Encoder + two-branch point decoder."""
+
+    def __init__(self, cfg: Config, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, generator)
+        self.decoder = Decoder(cfg, generator)
+
+    def forward(self, pc, sn, node, node_knn_I=None, *,
+                epoch: Optional[int] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> tuple[DecoderOutput, EncoderOutput]:
+        """The reconstruction is ``dec.pc`` (B, output points, 3), float32.
+        ``epoch`` as in ``ClassifierModel``; the model draws no random
+        numbers, so ``generator`` is not read."""
+        enc = self.encoder(pc, sn, node, node_knn_I, epoch=epoch)
+        return self.decoder(enc.feature, epoch), enc
+
+
 _MODELS = {
     "classify": ClassifierModel,
     "retrieve": ClassifierModel,  # retrieval = classifier scores as keys
     "segment": SegmenterModel,
+    "autoencode": AutoencoderModel,
 }
 
 
@@ -70,12 +92,14 @@ def build_model(cfg: Config, device: str | torch.device = "cuda",
                 seed: int | None = None) -> nn.Module:
     """The model for ``cfg.task``, in eval mode on ``device``, with weights
     drawn from a ``torch.Generator`` seeded with ``seed`` (default
-    ``cfg.seed``): He fan_in normal kernels, zero biases, unit BatchNorm.
+    ``cfg.seed``): He fan_in normal kernels, zero biases, unit BatchNorm
+    (the decoder: fan_out kernels and 0.001 biases in its convolutions,
+    U(-1, 1) biases in the layers that emit points).
     Raises when ``device`` is ``cuda`` and there is no card.  The train
     entry point (``train.init_state``) switches it to train mode."""
     dev = resolve_device(device)
     if cfg.task not in _MODELS:
         raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (have {sorted(_MODELS)})")
+            f"unknown task {cfg.task!r} (have {sorted(_MODELS)})")
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     return _MODELS[cfg.task](cfg, gen).to(dev).eval()

@@ -15,8 +15,11 @@ Train or eval follows ``nn.Module.training``.  In training, BatchNorm
 normalises with the batch statistics and updates its running ones with
 torch-convention momentum and the reference's epoch momentum decay, and
 the bias of a dense layer that a BatchNorm follows gets no gradient
-(``stop_bias_grad``).  ``InstanceNorm`` and ``UpConv`` arrive with the
-autoencoder.
+(``stop_bias_grad``).
+
+``UpConv`` (the autoencoder's decoder) keeps the JAX package's NHWC
+interface; inside, the 3x3 convolution sees the same memory as an NCHW
+tensor in ``channels_last`` format, so no copy is made for the layout.
 """
 
 from __future__ import annotations
@@ -43,11 +46,24 @@ def activation_fn(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]
     }[name]
 
 
+def _he_normal_(weight: torch.Tensor, fan: int,
+                generator: torch.Generator) -> None:
+    with torch.no_grad():
+        weight.copy_(torch.randn(weight.shape, generator=generator)
+                     * math.sqrt(2.0 / fan))
+
+
 def he_normal_in_(weight: torch.Tensor, generator: torch.Generator) -> None:
     """normal(0, sqrt(2 / fan_in)) in place; ``weight`` is (out, in)."""
-    std = math.sqrt(2.0 / weight.shape[1])
-    with torch.no_grad():
-        weight.copy_(torch.randn(weight.shape, generator=generator) * std)
+    _he_normal_(weight, weight.shape[1], generator)
+
+
+def he_normal_out_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """normal(0, sqrt(2 / fan_out)) in place, for a convolution kernel
+    ``weight`` (out, in, kh, kw): fan_out = out * kh * kw (UpConv's init,
+    which the reference scales by the output channels)."""
+    _he_normal_(weight, weight.shape[0] * math.prod(weight.shape[2:]),
+                generator)
 
 
 class Dense(nn.Module):
@@ -174,8 +190,32 @@ class BatchNorm(nn.Module):
         return (y * self.weight + self.bias).to(x.dtype)
 
 
+class InstanceNorm(nn.Module):
+    """Instance normalization over the point axes (all but the first and
+    the last), per sample and channel: affine, no running statistics,
+    float32 statistics with the biased variance.  A rank-2 input ``(B, C)``
+    has nothing to normalise over and gets the affine map only."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() < 3:
+            return x * self.weight + self.bias
+        axes = tuple(range(1, x.dim() - 1))
+        xf = x.float()
+        mean = xf.mean(axes, keepdim=True)
+        var = (xf - mean).square().mean(axes, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
+
+
 class PointLayer(nn.Module):
-    """Dense -> [BatchNorm] -> [activation] over the trailing axis.  Given
+    """Dense -> [BatchNorm | InstanceNorm] -> [activation] over the trailing
+    axis (``normalization`` is "batch", "instance" or None).  Given
     a sequence of input widths it acts on the virtual concatenation of as
     many inputs (``ConcatDense``).  ``momentum``, ``bn_momentum_decay_step``
     and ``bn_momentum_decay`` configure the BatchNorm."""
@@ -189,7 +229,7 @@ class PointLayer(nn.Module):
                  bn_momentum_decay_step: Optional[int] = None,
                  bn_momentum_decay: float = 0.6):
         super().__init__()
-        if normalization not in (None, "batch"):
+        if normalization not in (None, "batch", "instance"):
             raise NotImplementedError(f"normalization={normalization!r}")
         bn = normalization == "batch"
         if isinstance(in_features, int):
@@ -202,6 +242,8 @@ class PointLayer(nn.Module):
                                       momentum_decay_step=bn_momentum_decay_step,
                                       momentum_decay=bn_momentum_decay)
                             if bn else None)
+        self.InstanceNorm_0 = (InstanceNorm(features)
+                               if normalization == "instance" else None)
         self.compute_dtype = compute_dtype
         self.act = activation_fn(activation)
 
@@ -210,6 +252,8 @@ class PointLayer(nn.Module):
         x = self.Dense_0(*xs)
         if self.BatchNorm_0 is not None:
             x = self.BatchNorm_0(x, epoch)
+        elif self.InstanceNorm_0 is not None:
+            x = self.InstanceNorm_0(x)
         return self.act(x)
 
 
@@ -318,3 +362,63 @@ class KNNModule(nn.Module):
         for i in range(self.n):
             h = getattr(self, f"PointLayer_{i}")(h, epoch=epoch)
         return center.squeeze(2), h.amax(2)
+
+
+class Conv3x3(nn.Module):
+    """3x3 "SAME" convolution of an NHWC input.  ``weight`` is (out, in,
+    3, 3), the JAX package's (3, 3, in, out) ``kernel`` permuted.  With a
+    ``compute_dtype`` the input, kernel and bias are cast to it and the
+    bias is added in it, as flax's ``nn.Conv(dtype=...)`` does."""
+
+    def __init__(self, in_features: int, features: int,
+                 generator: torch.Generator,
+                 compute_dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.weight = nn.Parameter(torch.empty(features, in_features, 3, 3))
+        self.bias = nn.Parameter(torch.full((features,), 0.001))
+        he_normal_out_(self.weight, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype or torch.promote_types(x.dtype,
+                                                       self.weight.dtype)
+        w = self.weight.to(dt, memory_format=torch.channels_last)
+        # (B, H, W, C) memory read as NCHW in channels_last: a view
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), w, padding=1)
+        return y.permute(0, 2, 3, 1) + self.bias.to(dt)
+
+
+class UpConv(nn.Module):
+    """2x nearest upsample -> 3x3 convolution -> [BatchNorm] ->
+    [activation], NHWC in and out.  The kernel is drawn with the fan_out
+    He scale and the bias starts at 0.001."""
+
+    def __init__(self, in_features: int, features: int,
+                 generator: torch.Generator,
+                 activation: Optional[str] = "relu",
+                 normalization: Optional[str] = "batch",
+                 compute_dtype: Optional[torch.dtype] = None,
+                 momentum: float = 0.1,
+                 bn_momentum_decay_step: Optional[int] = None,
+                 bn_momentum_decay: float = 0.6):
+        super().__init__()
+        self.compute_dtype = compute_dtype
+        self.Conv_0 = Conv3x3(in_features, features, generator, compute_dtype)
+        self.BatchNorm_0 = (BatchNorm(features, momentum=momentum,
+                                      momentum_decay_step=bn_momentum_decay_step,
+                                      momentum_decay=bn_momentum_decay)
+                            if normalization == "batch" else None)
+        self.act = activation_fn(activation)
+
+    def forward(self, x: torch.Tensor,
+                epoch: Optional[int] = None) -> torch.Tensor:
+        """x (B, H, W, C) -> (B, 2H, 2W, features)."""
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
+        B, H, W, C = x.shape
+        x = x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(
+            B, 2 * H, 2 * W, C)                       # nearest 2x, one copy
+        x = self.Conv_0(x)
+        if self.BatchNorm_0 is not None:
+            x = self.BatchNorm_0(x, epoch)
+        return self.act(x)

@@ -2,6 +2,7 @@
 package's ``ops``).  Plain tensor code is PyTorch; the JAX package's
 Pallas kernels become CUDA kernels under ``ops.cuda``."""
 
+from .chamfer import ChamferResult, chamfer, robust_norm
 from .gather import gather_by_segment, knn_gather, permute_points
 from .iou import compute_iou, iou_per_shape
 from .pairwise import (TopKAssign, assign_topk, knn, one_hot, one_hot_f32,
@@ -19,5 +20,6 @@ __all__ = [
     "compute_iou", "iou_per_shape", "segment_counts", "segment_max",
     "route_max_grad", "segment_max_fast", "segment_max_windowed",
     "windowed_vals", "windowed_vals_plain", "segment_argmax",
-    "segment_argmax_plain", "segment_max_argmax",
+    "segment_argmax_plain", "segment_max_argmax", "chamfer", "robust_norm",
+    "ChamferResult",
 ]

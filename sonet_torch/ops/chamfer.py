@@ -1,0 +1,66 @@
+"""Bidirectional Chamfer loss on the device (port of the JAX package's
+``ops/chamfer.py``).
+
+The (B, P, N) pairwise squared distances are one batched product and two
+argmins.  The 1-NN selection carries no gradient (an integer argmin);
+gradients flow through the selected pairs and ``robust_norm``,
+sqrt(sum_sq + 1e-8): into ``predict_pc`` directly (forward term) and
+through the gather (backward term), whose backward is a scatter-add.  On
+a CUDA device that scatter-add uses atomics, so its float32 sums may
+differ in their last bits from run to run.
+
+``argmin`` returns the first minimum, on both packages.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .pairwise import pairwise_sqdist
+
+
+def robust_norm(diff: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """sqrt(sum_c diff^2 + eps) over the channel axis."""
+    return torch.sqrt((diff * diff).sum(-1) + eps)
+
+
+class ChamferResult(NamedTuple):
+    loss: torch.Tensor            # scalar: forward + backward mean
+    forward_loss: torch.Tensor    # scalar: mean over predict -> gt matches
+    backward_loss: torch.Tensor   # scalar: mean over gt -> predict matches
+    loss_array: torch.Tensor      # (B,) per-item forward + backward means
+    forward_array: torch.Tensor   # (B,) per-item forward means
+    backward_array: torch.Tensor  # (B,) per-item backward means
+
+
+def _take_points(pc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """pc (B, N, C), idx (B, P) -> (B, P, C)."""
+    return torch.gather(pc, 1, idx[..., None].expand(-1, -1, pc.shape[-1]))
+
+
+def chamfer(predict_pc: torch.Tensor, gt_pc: torch.Tensor) -> ChamferResult:
+    """Bidirectional 1-NN Chamfer distance; predict_pc (B, P, 3), gt_pc
+    (B, N, 3), channel-last."""
+    # the distances only feed the argmins: no graph is kept for them
+    d = pairwise_sqdist(predict_pc.detach(), gt_pc.detach())    # (B, P, N)
+
+    # predict -> gt: the nearest gt point of each predicted point
+    sel_gt = _take_points(gt_pc, d.argmin(-1))                  # (B, P, 3)
+    fwd_elem = robust_norm(sel_gt - predict_pc)
+
+    # gt -> predict: the nearest predicted point of each gt point
+    sel_pred = _take_points(predict_pc, d.argmin(-2))           # (B, N, 3)
+    bwd_elem = robust_norm(sel_pred - gt_pc)
+
+    forward_loss = fwd_elem.mean()
+    backward_loss = bwd_elem.mean()
+    forward_array = fwd_elem.mean(-1)
+    backward_array = bwd_elem.mean(-1)
+    return ChamferResult(loss=forward_loss + backward_loss,
+                         forward_loss=forward_loss,
+                         backward_loss=backward_loss,
+                         loss_array=forward_array + backward_array,
+                         forward_array=forward_array,
+                         backward_array=backward_array)

@@ -31,7 +31,8 @@ from .nn.encoder import resolve_pooling, spatial_dim
 
 _OUTPUT_DOC = {"classify": "score (B, classes)",
                "retrieve": "score (B, classes)",
-               "segment": "per-point score (B, N, classes)"}
+               "segment": "per-point score (B, N, classes)",
+               "autoencode": "reconstructed cloud (B, P, 3)"}
 
 
 def batch_buckets(max_batch: int) -> list:
@@ -65,14 +66,15 @@ def build_serve_fn(model: nn.Module, cfg: Config) -> Callable:
     """Eval-mode forward of a model: the inputs of ``input_signature`` as
     tensors on the model's device -> the task's output (``_OUTPUT_DOC``)."""
     if cfg.task not in _OUTPUT_DOC:
-        raise NotImplementedError(f"serving task {cfg.task!r} is not ported "
-                                  f"yet (have {sorted(_OUTPUT_DOC)})")
+        raise NotImplementedError(f"unknown serving task {cfg.task!r} "
+                                  f"(have {sorted(_OUTPUT_DOC)})")
     model.eval()
+    autoencode = cfg.task == "autoencode"
 
     def serve(*inputs):
         with torch.inference_mode():
-            score, _ = model(*inputs)
-        return score
+            out, _ = model(*inputs)
+        return out.pc if autoencode else out
 
     return serve
 

@@ -1,5 +1,5 @@
-"""Train and eval steps of the classify and segment tasks (port of the
-JAX package's ``train/loops.py``).
+"""Train and eval steps of the classify, segment and autoencode tasks
+(port of the JAX package's ``train/loops.py``).
 
 Batches are dicts of tensors on the model's device:
 ``{"pc": (B, N, D), "sn": (B, N, D) | None, "node": (B, M, D),
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import Config
+from ..ops.chamfer import chamfer
 from ..ops.iou import iou_per_shape
 from . import losses
 from .state import TrainState
@@ -148,13 +149,82 @@ def make_segment_steps(cfg: Config, steps_per_epoch: int
     return train_step, eval_step
 
 
+def _ae_loss(cfg: Config, dec, pc: torch.Tensor):
+    """Multi-scale Chamfer loss against the cloud ``pc``: the final cloud,
+    plus the conv pyramid's lower taps (``conv_pc4`` when the conv branch
+    emits 1024 points, ``conv_pc4`` and ``conv_pc5`` when 4096).  Returns
+    the loss and its parts by name."""
+    total = chamfer(dec.pc, pc)
+    loss = total.loss
+    aux = {"chamfer": total.loss, "chamfer_fwd": total.forward_loss,
+           "chamfer_bwd": total.backward_loss}
+    if cfg.output_conv_pc_num == 1024:
+        c4 = chamfer(dec.conv_pc4, pc)
+        loss = loss + c4.loss
+        aux["chamfer_pc4"] = c4.loss
+    elif cfg.output_conv_pc_num == 4096:
+        c4 = chamfer(dec.conv_pc4, pc)
+        c5 = chamfer(dec.conv_pc5, pc)
+        loss = loss + c4.loss + c5.loss
+        aux["chamfer_pc4"] = c4.loss
+        aux["chamfer_pc5"] = c5.loss
+    aux["loss"] = loss
+    return loss, aux
+
+
+def make_autoencode_steps(cfg: Config, steps_per_epoch: int
+                          ) -> tuple[Callable, Callable]:
+    """(train_step, eval_step) for an autoencoder model.
+
+    ``train_step(state, batch, generator)`` is as the classify one, with
+    the multi-scale Chamfer loss taken against the input cloud after the
+    random point dropout; its metrics are the loss and its parts
+    (``_ae_loss``).
+
+    ``eval_step(state, batch)`` returns the same parts from the eval
+    forward, the per-item ``loss_i``, ``chamfer_fwd_i`` and
+    ``chamfer_bwd_i`` of the final cloud (B,), and ``predicted_pc``
+    (B, output points, 3)."""
+    spe = max(steps_per_epoch, 1)
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None):
+        model = state.model
+        model.train()
+        epoch = state.step // spe
+        pc, sn = random_point_dropout(batch["pc"], batch.get("sn"), generator,
+                                      cfg.random_pc_dropout_lower_limit)
+        state.optimizer.zero_grad(set_to_none=True)
+        dec, _ = model(pc, sn, batch["node"], batch.get("node_knn_I"),
+                       epoch=epoch, generator=generator)
+        loss, aux = _ae_loss(cfg, dec, pc)
+        loss.backward()
+        state.apply_gradients()
+        return state, {k: v.detach() for k, v in aux.items()}
+
+    def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
+        model = state.model
+        model.eval()
+        with torch.no_grad():
+            dec, _ = model(batch["pc"], batch.get("sn"), batch["node"],
+                           batch.get("node_knn_I"))
+            _, aux = _ae_loss(cfg, dec, batch["pc"])
+            c = chamfer(dec.pc, batch["pc"])
+        aux.update(loss_i=c.loss_array, chamfer_fwd_i=c.forward_array,
+                   chamfer_bwd_i=c.backward_array, predicted_pc=dec.pc)
+        return aux
+
+    return train_step, eval_step
+
+
 def make_steps(cfg: Config, steps_per_epoch: int
                ) -> tuple[Callable, Callable]:
     """(train_step, eval_step) for ``cfg.task``."""
     makers = {"classify": make_classify_steps,
               "retrieve": make_classify_steps,
-              "segment": make_segment_steps}
+              "segment": make_segment_steps,
+              "autoencode": make_autoencode_steps}
     if cfg.task not in makers:
         raise NotImplementedError(
-            f"task {cfg.task!r} is not ported yet (have {sorted(makers)})")
+            f"unknown task {cfg.task!r} (have {sorted(makers)})")
     return makers[cfg.task](cfg, steps_per_epoch)

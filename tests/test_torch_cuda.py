@@ -347,7 +347,7 @@ def test_segment_train_step_on_card_matches_cpu(cuda_device):
         state, metrics[str(dev)] = step(state, batch, None)
         assert smw.windowed_vals.launches - before == (
             1 if dev == cuda_device else 0)
-        stopped = chip_smoke._stopped_biases(model)
+        stopped = chip_smoke._no_gradient(model, cfg)
         assert all((p.grad is None) == (n in stopped)
                    for n, p in model.named_parameters())
     torch.testing.assert_close(metrics[str(cuda_device)]["loss"].cpu(),
@@ -412,3 +412,116 @@ def test_run_round_trip_on_card(cuda_device, tmp_path):
             assert torch.equal(v, cls_state.model.state_dict()[k]), k
         else:
             assert torch.equal(v, before[k]), k
+
+
+# ---------------------------------------------------------------------------
+# the autoencoder and the SOM on the card
+# ---------------------------------------------------------------------------
+
+def _true_float32_on_card():
+    """Float32 products and convolutions on the card as on the CPU: cuDNN
+    takes TF32 for float32 convolutions unless told not to, which moves
+    the decoder's output by 1e-3 of its largest coordinate."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _ae_batch(cfg, device, seed=0):
+    """Clouds on squeezed spheres, with SOM nodes fitted on ``device``."""
+    from sonet_torch import som
+    rs = np.random.RandomState(seed)
+    u = rs.randn(4, cfg.input_pc_num, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    pc = (u * rs.uniform(0.4, 1.0, (4, 1, 3))).astype(np.float32)
+    node = som.fit(pc, som.SOMConfig(cfg.rows, cfg.cols, 3), device=device)
+    return {"pc": torch.from_numpy(pc).to(device),
+            "sn": torch.from_numpy(u.astype(np.float32)).to(device),
+            "node": node}
+
+
+def test_autoencoder_on_card_matches_cpu(cuda_device):
+    _true_float32_on_card()
+    cfg = config.tiny_test().replace(task="autoencode")
+    batch = _ae_batch(cfg, cuda_device)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    gpu = build_model(cfg, device=cuda_device, seed=0)
+    before = smw.windowed_vals.launches
+    with torch.no_grad():
+        want, _ = cpu(*(batch[k].cpu() for k in ("pc", "sn", "node")))
+        got, _ = gpu(*(batch[k] for k in ("pc", "sn", "node")))
+    assert smw.windowed_vals.launches == before + 1
+    assert got.pc.shape == (4, 16 + 1024, 3) and got.conv_pc6 is None
+    # float32 on both; cuBLAS and cuDNN sum in another order than the
+    # CPU: 1e-4 of each tap's largest coordinate
+    for name in ("pc", "linear_pc", "conv_pc4", "conv_pc5"):
+        w = getattr(want, name)
+        torch.testing.assert_close(getattr(got, name).cpu(), w, rtol=0,
+                                   atol=1e-4 * max(1.0, float(w.abs().max())))
+
+
+def test_autoencode_train_step_on_card_matches_cpu(cuda_device):
+    """One float32 train step: the Chamfer loss and its parts, and every
+    gradient.  The gradients are taken from a forward with the running
+    statistics, just before the step, where they do not hang on the order
+    of the statistics' sums (``chip_smoke.py`` holds the train-mode
+    gradients on its own batch)."""
+    _true_float32_on_card()
+    cfg = config.tiny_test().replace(task="autoencode", dropout=0.0,
+                                     batch_size=4)
+    step, _ = train.make_steps(cfg, steps_per_epoch=10)
+    card_batch = _ae_batch(cfg, cuda_device)
+    grads, metrics = {}, {}
+    for dev in ("cpu", cuda_device):
+        state = train.init_state(cfg, device=dev, seed=0, steps_per_epoch=10)
+        batch = {k: v.to(dev) for k, v in card_batch.items()}
+        dec, _ = state.model.eval()(batch["pc"], batch["sn"], batch["node"])
+        train.loops._ae_loss(cfg, dec, batch["pc"])[0].backward()
+        grads[str(dev)] = _grads(state.model)
+        before = smw.windowed_vals.launches
+        _, metrics[str(dev)] = step(state, batch, None)
+        launched = smw.windowed_vals.launches - before
+        assert launched == (1 if dev == cuda_device else 0)
+    # the train step's loss and its parts, with batch statistics over 4
+    # clouds: 1e-4 of max(1, the value)
+    for k, want in metrics["cpu"].items():
+        torch.testing.assert_close(metrics[str(cuda_device)][k].cpu(), want,
+                                   rtol=1e-4, atol=1e-4)
+    _assert_grads_close(grads[str(cuda_device)], grads["cpu"])
+    w = "decoder.conv_decoder.UpConv_0.Conv_0.weight"
+    assert float(grads[str(cuda_device)][w].abs().max()) > 1e-5
+
+
+@pytest.mark.parametrize("schedule", ["prep", "online"])
+def test_som_fit_on_card_matches_cpu(cuda_device, schedule):
+    from sonet_torch import som
+    rs = np.random.RandomState(3)
+    u = rs.randn(8, 1024, 3)
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    x = torch.from_numpy((u * rs.uniform(0.4, 1.0, (8, 1, 3)))
+                         .astype(np.float32))
+    cfg = som.SOMConfig(8, 8, 3, schedule=schedule)
+    init = som.init_nodes(cfg, 8, device="cpu")
+    one_cpu = som.batch_update(init, x, 0.5, 0.4, cfg)
+    one_card = som.batch_update(init.to(cuda_device), x.to(cuda_device), 0.5,
+                                0.4, cfg)
+    # float32 sums over a node's points taken in another order
+    torch.testing.assert_close(one_card.cpu(), one_cpu, rtol=0, atol=1e-5)
+
+    def qe(points, nodes):
+        d = (points[:, :, None, :] - nodes[:, None, :, :]).norm(dim=-1)
+        return float(d.min(-1).values.mean())
+
+    on_cpu = som.fit(x, cfg, device="cpu")
+    on_card = som.fit(x, cfg, device=cuda_device)
+    assert on_card.is_cuda and on_card.shape == (8, 64, 3)
+    # a fit can amplify rounding (a changed winner moves later winners),
+    # so the whole fit is held by what it is for, within 1%
+    assert abs(qe(x, on_card.cpu()) - qe(x, on_cpu)) <= 1e-2 * qe(x, on_cpu)
+    assert qe(x, on_card.cpu()) < 0.8 * qe(x, init)
+    # true float32 whatever the matmul switch says
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with_tf32 = som.fit(x, cfg, device=cuda_device)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(with_tf32, on_card)

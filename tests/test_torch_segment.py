@@ -774,8 +774,8 @@ def test_segment_losses_match_jax():
 
 
 def test_make_steps_dispatches_by_task():
-    with pytest.raises(NotImplementedError, match="autoencode"):
-        ttrain.make_steps(tcfg.autoencoder(), 10)
-    for preset in ("modelnet40", "shrec16", "shapenetpart"):
+    with pytest.raises(NotImplementedError, match="detect"):
+        ttrain.make_steps(tcfg.tiny_test().replace(task="detect"), 10)
+    for preset in ("modelnet40", "shrec16", "shapenetpart", "autoencoder"):
         step, ev = ttrain.make_steps(getattr(tcfg, preset)(), 10)
         assert callable(step) and callable(ev)

@@ -87,7 +87,8 @@ class TestServingEngine:
             engine.predict({k: v[:0] for k, v in req.items()})
 
     def test_signature_and_buckets_match_jax(self):
-        for preset in ("modelnet40", "mnist", "tiny_test", "shapenetpart"):
+        for preset in ("modelnet40", "mnist", "tiny_test", "shapenetpart",
+                       "autoencoder"):
             assert (tserving.input_signature(getattr(tcfg, preset)(), 3)
                     == jserving.input_signature(getattr(jcfg, preset)(), 3))
         for b in (1, 6, 8, 13):
@@ -118,11 +119,19 @@ class TestDevice:
             resolve_pooling(cfg.replace(pooling="bogus"), "cpu")
 
     def test_unported_task_raises(self):
-        with pytest.raises(NotImplementedError, match="autoencode"):
-            build_model(tcfg.autoencoder(), device="cpu")
-        model = build_model(tcfg.modelnet40(), device="cpu")
-        with pytest.raises(NotImplementedError, match="autoencode"):
-            tserving.build_serve_fn(model, tcfg.autoencoder())
+        """Every task of the JAX package is ported; a task neither package
+        knows is refused by name at each entry point."""
+        from sonet_torch import train as ttrain
+        bogus = tcfg.tiny_test().replace(task="detect")
+        with pytest.raises(NotImplementedError, match="detect"):
+            build_model(bogus, device="cpu")
+        model = build_model(tcfg.tiny_test(), device="cpu")
+        with pytest.raises(NotImplementedError, match="detect"):
+            tserving.build_serve_fn(model, bogus)
+        with pytest.raises(NotImplementedError, match="detect"):
+            ttrain.make_steps(bogus, 10)
+        for preset in ("autoencoder", "shapenetpart", "shrec16", "mnist"):
+            ttrain.make_steps(getattr(tcfg, preset)(), 10)
 
 
 class TestConfig:
@@ -163,7 +172,8 @@ class TestImportBoundary:
         code = ("import sys, sonet_torch, sonet_torch.serving, "
                 "sonet_torch.convert, sonet_torch.ops.cuda, "
                 "sonet_torch.ops.iou, sonet_torch.nn.heads, "
-                "sonet_torch.train.checkpoints\n"
+                "sonet_torch.train.checkpoints, sonet_torch.nn.decoder, "
+                "sonet_torch.ops.chamfer, sonet_torch.som\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'flax', 'optax', 'sonet_tpu')]\n"
                 "print(bad); sys.exit(1 if bad else 0)")
