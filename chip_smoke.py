@@ -68,9 +68,30 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    running statistics; the 64x64 decoder stage that nothing reads gets no
    gradient and does not move; then phase 8's round trip on the trained
    autoencoder's run;
-12. a JSON line of every kernel with its launches on each of the six
+12. trainer: ``sonet-torch classify`` (``cli.main``, as a user runs it)
+   at ``config.modelnet40()``'s width on the synthetic dataset (320 train
+   and 160 test clouds, nodes fitted on the card), point dropout from 0.8
+   drawing from a CUDA generator, ``checkpoint_every=20``: one epoch with
+   every kernel's launch count read from 0, ``config.json`` and a
+   checkpoint written, the epoch's time a step with the loader in; then a
+   ``train.Trainer`` on that run: it resumes at the run's step, its eval
+   by hand over the 160 valid items equals the run's, the card's busy
+   share over an epoch under torch.profiler, ``request_stop`` and a
+   ``fit`` that checkpoints, a new ``Trainer`` that resumes at that step
+   bit for bit, ``ServingEngine.from_run`` against ``Trainer.eval_step``;
+13. retrieve: ``config.shrec16()`` at full width (som_k=0, 55 classes): a
+   SHREC tree of 110 / 55 / 55 shapes of 6000 points written with nodes
+   fitted on the card; ``sonet-torch classify`` for one epoch, evaluated
+   on ``val`` (its loss equal to one by hand), and ``sonet-torch
+   retrieve`` from its checkpoint, kernel launches read from 0 over both;
+   its 55 rank files, named by the split's ids, byte-equal to the same
+   checkpoint's test scores (``retrieval.extract_scores``) ranked by
+   ``rank_all`` on the card, and that ranking held against the CPU's; a
+   gallery exactly when matplotlib is installed; mAP and P@k; the
+   extraction and the ranking timed;
+14. a JSON line of every kernel with its launches on each of the eight
    paths, error and times;
-13. last line: {"ok": true, "device": {...}}.
+15. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
 and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
@@ -711,8 +732,7 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
     clouds = _clouds(np, 13, cfg, seed=1)
     inputs = {n: clouds[n] for n in names}
 
-    for counter in kernel_counters.values():
-        counter.launches = 0
+    _reset(kernel_counters)
     outputs = {}
     for b in (1, 8, 13):
         before = {n: c.launches for n, c in kernel_counters.items()}
@@ -727,7 +747,7 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
             raise AssertionError(f"a kernel was not launched for B'={b}: "
                                  f"{grew}")
         outputs[b] = out
-    launches = {n: c.launches for n, c in kernel_counters.items()}
+    launches = _launch_counts(kernel_counters)
     log(f"served: {engine.stats()}; launches {launches}")
 
     # items are independent in eval mode: the 13-item request chunks to
@@ -878,8 +898,7 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
     del twin
 
     gen = torch.Generator(device=dev).manual_seed(7)
-    for counter in kernel_counters.values():
-        counter.launches = 0
+    _reset(kernel_counters)
     losses = []
     for i in range(TRAIN_STEPS):
         state, metrics = train_step(state, batches[i % 3], gen)
@@ -901,7 +920,7 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
                 raise AssertionError("train loss: kernel path disagrees with "
                                      "the scatter path")
     torch.cuda.synchronize()
-    launches = {n: c.launches for n, c in kernel_counters.items()}
+    launches = _launch_counts(kernel_counters)
     log(f"{TRAIN_STEPS} train steps: losses {losses}; kernel launches "
         f"{launches}")
     for n in on_path:
@@ -1205,12 +1224,340 @@ def phase_som(profile_dir=None):
                         profile_dir, f"som_fit_{schedule}")
 
 
+def _launch_counts(kernel_counters):
+    return {n: c.launches for n, c in kernel_counters.items()}
+
+
+def _reset(kernel_counters):
+    for counter in kernel_counters.values():
+        counter.launches = 0
+
+
+def _to_card(batch):
+    import torch
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()
+            if k != "valid"}
+
+
+def _busy_share(fn):
+    """(wall s, device-busy s, device rows) of one call of ``fn`` under
+    torch.profiler: the card's busy share is the second over the first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof.key_averages())
+    return wall, sum(e.self_device_time_total for e in rows) / 1e6, sum(
+        e.count for e in rows)
+
+
+def _cli(argv):
+    """``sonet-torch <argv>``, as a user runs it, in this process."""
+    from sonet_torch import cli
+    log(f"sonet-torch {' '.join(argv)}")
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    import torch
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"sonet-torch {argv[0]} exited with {rc}")
+    return time.perf_counter() - t0
+
+
+def _logged(run_dir, key):
+    """The last record with ``key`` in the run's metric log."""
+    with open(os.path.join(run_dir, "train_metrics.jsonl")) as f:
+        return [json.loads(ln) for ln in f if f'"{key}"' in ln][-1]
+
+
+def _eval_by_hand(state, eval_step, loader):
+    """(mean loss over the valid items, their count) of ``loader``."""
+    loss_sum, count = 0.0, 0
+    for batch in loader:
+        valid = int(batch["valid"])
+        m = eval_step(state, _to_card(batch))
+        loss_sum += float(m["loss_i"][:valid].double().sum())
+        count += valid
+    return loss_sum / count, count
+
+
+def phase_trainer(kernel_counters, on_path, runs):
+    """``sonet-torch classify`` (``cli.main``) on the card at
+    ``config.modelnet40()``'s width, on the synthetic dataset (nodes fitted
+    on the card), with point dropout drawing from a CUDA generator: one
+    epoch, its eval over every test item, a periodic checkpoint, the epoch
+    time with the loader in.  Then a ``Trainer`` on that run: the resume,
+    the eval by hand, the card's busy share over an epoch, a graceful stop
+    and a resume bit for bit, ``ServingEngine.from_run``.  Returns the
+    launches of every kernel in the command's run."""
+    import numpy as np
+    import torch
+    from sonet_torch import config, train
+    from sonet_torch.config import load_config
+    from sonet_torch.serving import ServingEngine
+    from sonet_torch.train.trainer import Trainer
+
+    flags = ["--preset", "modelnet40", "--dataset", "synthetic",
+             "--random_pc_dropout_lower_limit", "0.8",
+             "--checkpoint_every", "20", "--epochs", "1",
+             "--checkpoints_dir", runs, "--name", "trainer"]
+    cfg = config.parse_args(flags)
+    B = cfg.batch_size
+    run = os.path.join(runs, "trainer")
+    _reset(kernel_counters)
+    cli_s = _cli(["classify", "--device", "cuda"] + flags)
+    launches = _launch_counts(kernel_counters)
+    summary = _logged(run, "train_sec_per_step")
+    logged = _logged(run, "test_loss")
+    sec = summary["train_sec_per_step"]
+    ckpt = train.latest_checkpoint(os.path.join(run, "ckpt"))
+    log(f"{_describe(cfg)}, point dropout from "
+        f"{cfg.random_pc_dropout_lower_limit}: the command took {cli_s:.3f} "
+        f"s (datasets, nodes fitted on the card, one epoch, its eval, "
+        f"checkpoints); test loss {logged['test_loss']}, accuracy "
+        f"{logged['test_accuracy']}; last train loss {summary['train_loss']}; "
+        f"checkpoint {ckpt}; kernel launches {launches}")
+    log(f"Trainer epoch with the loader in: {sec * 1e3:.4f} ms a step "
+        f"({B / sec:.1f} clouds/s)")
+    if (load_config(os.path.join(run, "config.json")).to_dict()
+            != cfg.to_dict() or ckpt is None
+            or not np.isfinite(logged["test_loss"])):
+        raise AssertionError("sonet-torch classify: bad run or metrics")
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, quiet=True, device="cuda")
+    steps = trainer.steps_per_epoch
+    n_eval = -(-len(trainer.test_set) // B)
+    log(f"a Trainer on the run: {len(trainer.train_set)} train and "
+        f"{len(trainer.test_set)} test clouds, {steps} steps an epoch, built "
+        f"in {time.perf_counter() - t0:.3f} s, resumed at step "
+        f"{trainer.state.step}")
+    if (len(trainer.train_set), len(trainer.test_set)) != (320, 160):
+        raise AssertionError("the synthetic splits are not 320 and 160")
+    if trainer.state.step != steps:
+        raise AssertionError("the Trainer did not resume the command's run")
+    for n in on_path:
+        if launches[n] != steps + n_eval:
+            raise AssertionError(f"{n} launched {launches[n]} times in an "
+                                 f"epoch of {steps} steps and {n_eval} eval "
+                                 f"batches")
+    loss, count = _eval_by_hand(trainer.state, trainer.eval_step,
+                                trainer.test_loader)
+    log(f"eval by hand over {count} valid items: loss {loss} vs the run's "
+        f"{logged['test_loss']}")
+    if (count != 160 or abs(loss - logged["test_loss"])
+            > 1e-5 * max(1.0, logged["test_loss"])):
+        raise AssertionError("Trainer: the eval is not weighted by the "
+                             "valid items")
+
+    wall, busy, rows = _busy_share(lambda: trainer.train_epoch(1))
+    log(f"a second epoch under torch.profiler: {wall * 1e3 / steps:.4f} ms "
+        f"a step by the host clock, the card busy {busy * 1e3 / steps:.4f} "
+        f"ms a step ({busy / wall:.1%} of the epoch), {rows // steps} "
+        f"device rows a step; that device time over the command's "
+        f"{sec * 1e3:.4f} ms a step: {busy / steps / sec:.1%}")
+
+    trainer.request_stop()
+    trainer.fit(epochs=1)
+    stopped = trainer.state.step
+    resumed = Trainer(cfg, quiet=True, device="cuda")
+    bad = _same_tensors(torch, resumed.model.state_dict(),
+                        trainer.model.state_dict(), None)
+    log(f"request_stop: stopped at step {stopped}, checkpoint "
+        f"{os.path.basename(train.latest_checkpoint(os.path.join(run, 'ckpt')))}; "
+        f"a new Trainer resumed at step {resumed.state.step}, tensors "
+        f"differing {bad}")
+    if resumed.state.step != stopped or stopped != 2 * steps + 1 or bad:
+        raise AssertionError("Trainer: the stop or the resume is wrong")
+    del resumed
+
+    engine = ServingEngine.from_run(run, device="cuda")
+    batch = next(iter(trainer.test_loader))
+    got = engine.predict({n: batch[n] for n in engine.input_names})
+    want = trainer.eval_step(trainer.state, _to_card(batch))["score"]
+    want = want.float().cpu().numpy()
+    diff = float(np.abs(got - want).max())
+    scale = max(1.0, float(np.abs(want).max()))
+    log(f"ServingEngine.from_run vs Trainer.eval_step: max abs diff {diff} "
+        f"(tolerance {LOGIT_RTOL} x {scale})")
+    if got.shape != want.shape or diff > LOGIT_RTOL * scale:
+        raise AssertionError("from_run does not answer as the Trainer")
+    return launches
+
+
+def _shrec_tree(np, root, cfg, counts=(("train", 110), ("val", 55),
+                                       ("test", 55)), points=6000):
+    """A SHREC16 tree in the prepared layout of the JAX package's
+    ``data/modelnet.py`` under ``root``: the synthetic dataset's surfaces,
+    one class a shape in turn, nodes fitted on the card."""
+    from sonet_torch.data.synthetic import _shape_cloud
+    rng = np.random.default_rng(0)
+    cats = [f"cat{i:02d}" for i in range(cfg.classes)]
+    n = sum(c for _, c in counts)
+    pc = np.zeros((n, points, 3), np.float32)
+    sn = np.zeros((n, points, 3), np.float32)
+    for i in range(n):
+        cls = i % cfg.classes
+        p, q = _shape_cloud(cls, points, rng)
+        pc[i], sn[i] = p * (0.5 + 0.05 * (cls // 4)), q
+    nodes = _fit_nodes(pc, cfg)
+    with open(os.path.join(root, "category.txt"), "w") as f:
+        f.write("\n".join(cats) + "\n")
+    i = 0
+    for mode, count in counts:
+        d = os.path.join(root, f"{cfg.rows}x{cfg.rows}", mode)
+        os.makedirs(d)
+        lines = []
+        for _ in range(count):
+            name = f"{i:06d}"
+            np.savez(os.path.join(d, f"model_{name}.npz"), pc=pc[i],
+                     sn=sn[i], som_node=nodes[i])
+            lines.append(name if mode == "test"
+                         else f"{name},{cats[i % cfg.classes]}")
+            i += 1
+        with open(os.path.join(root, f"{mode}.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+
+
+def phase_retrieve(kernel_counters, on_path, runs):
+    """SHREC16 retrieval at ``config.shrec16()``'s width (som_k=0), as a
+    user runs it: ``sonet-torch classify`` for one epoch on a written tree,
+    evaluated on ``val``, then ``sonet-torch retrieve`` from its checkpoint
+    over the test split.  Its rank files are held against the test split's
+    scores from the same checkpoint ranked by ``retrieval.rank_all`` on the
+    card, and that ranking against the CPU's; metrics.  Returns the
+    launches of every kernel in the two commands' runs."""
+    import numpy as np
+    import torch
+    from sonet_torch import config, retrieval, train
+    from sonet_torch.data.pipeline import BatchLoader
+    from sonet_torch.train.trainer import build_dataset
+    from sonet_torch.utils import visualize
+
+    root = os.path.join(runs, "shrec16")
+    os.makedirs(root)
+    data = ["--preset", "shrec16", "--dataroot", root]
+    cfg = config.parse_args(data)
+    t0 = time.perf_counter()
+    _shrec_tree(np, root, cfg)
+    log(f"retrieval {_describe(cfg)}: SHREC tree of 110 / 55 / 55 shapes of "
+        f"6000 points written in {time.perf_counter() - t0:.3f} s")
+    run = os.path.join(runs, "retrieve")
+    out = os.path.join(runs, "rank")
+    _reset(kernel_counters)
+    _cli(["classify", "--device", "cuda", "--epochs", "1", "--checkpoints_dir",
+          runs, "--name", "retrieve"] + data)
+    ckpt = train.latest_checkpoint(os.path.join(run, "ckpt"))
+    if ckpt is None:
+        raise AssertionError("sonet-torch classify left no checkpoint")
+    retrieve_s = _cli(["retrieve", "--device", "cuda", "--checkpoint", ckpt,
+                       "--output_dir", out] + data)
+    launches = _launch_counts(kernel_counters)
+    n_batches = -(-55 // cfg.batch_size)
+    want_launches = 110 // cfg.batch_size + 2 * n_batches
+    log(f"sonet-torch retrieve took {retrieve_s:.3f} s; kernel launches in "
+        f"both commands {launches}")
+    for n in on_path:
+        if launches[n] != want_launches:
+            raise AssertionError(f"{n} launched {launches[n]} times, want "
+                                 f"{want_launches}")
+
+    # the same checkpoint, scored and ranked here
+    state = train.init_state(cfg, device="cuda", seed=cfg.seed)
+    train.restore_checkpoint(ckpt, state)
+    _, eval_step = train.make_steps(cfg, 1)
+    loss, count = _eval_by_hand(state, eval_step, BatchLoader(
+        build_dataset(cfg, "val", "cuda"), cfg.batch_size, shuffle=False,
+        drop_last=False, pad_last=True))
+    logged = _logged(run, "test_loss")["test_loss"]
+    log(f"the val split's loss by hand {loss} over {count} items vs the "
+        f"run's {logged}")
+    if count != 55 or abs(loss - logged) > 1e-5 * max(1.0, logged):
+        raise AssertionError("sonet-torch classify did not evaluate on val")
+    loader = BatchLoader(build_dataset(cfg, "test", "cuda"), cfg.batch_size,
+                         shuffle=False, drop_last=False, pad_last=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, labels, ids = retrieval.extract_scores(eval_step, state, loader,
+                                                   _to_card)
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    card = torch.from_numpy(scores).cuda()
+    retrieval.rank_all(card)
+    rank_ms = time_ms(lambda: retrieval.rank_all(card), reps=5)
+    results = retrieval.rank_all(card)
+    mine = os.path.join(runs, "rank_here")
+    retrieval.write_rank_files(results, ids, mine)
+    files = sorted(os.listdir(mine))
+
+    def same(name):
+        with open(os.path.join(out, name), "rb") as x, open(
+                os.path.join(mine, name), "rb") as y:
+            return x.read() == y.read()
+
+    same_files = [f for f in files if same(f)]
+    log(f"extract_scores over {len(scores)} test shapes: {extract_ms:.4f} ms; "
+        f"rank_all on the card: {rank_ms:.4f} ms; the command's rank files "
+        f"byte-equal to these: {len(same_files)} of {len(files)}")
+    if sorted(f for f in os.listdir(out) if f != "gallery") != files or (
+            same_files != files):
+        raise AssertionError("sonet-torch retrieve wrote other rank files")
+    if os.path.isdir(os.path.join(out, "gallery")) != visualize.available():
+        raise AssertionError("the gallery is not drawn exactly when "
+                             "matplotlib is there")
+
+    on_cpu = retrieval.rank_all(scores)
+    # |a|^2 + |b|^2 - 2 a.b in float32 is exact to about C eps (|a|^2 +
+    # |b|^2) on each side, whatever the order of its sums: the bound the
+    # squared distances of the two devices are held to (a query's
+    # distance to itself, 0 up to that rounding, included)
+    n2 = (scores.astype(np.float64) ** 2).sum(1)
+    eps = float(np.finfo(np.float32).eps)
+    worst, lists_equal = 0.0, True
+    for q, ((gi, gd), (wi, wd)) in enumerate(zip(results, on_cpu)):
+        lists_equal &= np.array_equal(gi, wi)
+        if not lists_equal:
+            break
+        bound = 2 * scores.shape[1] * eps * (n2[q] + n2[gi])
+        diff = np.abs(gd.astype(np.float64) ** 2 - wd.astype(np.float64) ** 2)
+        worst = max(worst, float((diff / bound).max()))
+    log(f"rank_all on the card: candidate lists equal to the CPU's "
+        f"{lists_equal}; squared distances apart by at most {worst:.3f} of "
+        f"the float32 rounding bound C eps (|a|^2 + |b|^2) of the two sides; "
+        f"score norms {float(np.sqrt(n2.min())):.4g} to "
+        f"{float(np.sqrt(n2.max())):.4g}")
+    if not lists_equal or worst > 1.0:
+        raise AssertionError("rank_all on the card disagrees with the CPU")
+    scores_m = retrieval.retrieval_metrics(results, labels)
+    log(f"{len(files)} rank files ({files[0]} .. {files[-1]}); metrics "
+        f"{scores_m}")
+    if files != [f"{int(i):06d}" for i in sorted(ids)] or len(files) != 55 or (
+            not all(np.isfinite(v) and 0.0 <= v <= 1.0
+                    for v in scores_m.values())):
+        raise AssertionError("retrieval: bad rank files or metrics")
+    return launches
+
+
+def _device_rows(events):
+    """The device rows of a profiler's ``key_averages()``: kernels, copies
+    and memsets.  The operator rows repeat their kernels' time, and so
+    does the span that the optimizer step marks on the device, gaps
+    between its kernels included."""
+    from torch.autograd import DeviceType
+    return [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.step")]
+
+
 def profile_run(fn, out_dir, what):
     """torch.profiler over 5 calls of ``fn``: the kernel table to
     ``out_dir/profile_<what>.txt`` and the device-busy share of the window
     to stdout."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     torch.cuda.synchronize()
@@ -1222,12 +1569,7 @@ def profile_run(fn, out_dir, what):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    # device rows only (kernels, copies, memsets): the operator rows
-    # repeat their kernels' time, and so does the span that the optimizer
-    # step marks on the device, gaps between its kernels included
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.step")]
+    kernels = _device_rows(events)
     busy_us = sum(e.self_device_time_total for e in kernels)
     path = os.path.join(out_dir, f"profile_{what}.txt")
     with open(path, "w") as f:
@@ -1301,6 +1643,11 @@ def main(argv=None) -> int:
             autoenc, small_ae.replace(dropout=0.0), counters, on_path,
             os.path.join(ae_run, "ckpt"), args.profile)
         phase_round_trip(autoenc, ae_state, ae_run, ae_ckpt, classifier_ckpt)
+        for name, phase in (("trainer", phase_trainer),
+                            ("retrieve", phase_retrieve)):
+            t1 = time.perf_counter()
+            by_path[name] = phase(counters, on_path, runs)
+            log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())

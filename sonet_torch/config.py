@@ -1,6 +1,7 @@
 """Configuration for the PyTorch port: an own copy of the JAX package's
-``config.py`` (``Config``, the per-task presets and ``load_config``), so
-the port never imports the JAX package.  Field names, defaults and
+``config.py`` (``Config``, the per-task presets, ``load_config`` and the
+command-line front end ``parse_args``), so the port never imports the JAX
+package.  Field names, defaults and
 presets are identical, so a ``config.json`` written by either package
 loads in the other.
 
@@ -11,6 +12,7 @@ device and to the scatter form on the CPU (``nn.encoder.resolve_pooling``).
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -78,9 +80,10 @@ class Config:
     # "scatter" on the CPU (nn/encoder.py:resolve_pooling)
     pooling: str = "auto"  # auto | scatter | sorted_window
     # the fields below keep config.json files interchangeable with the
-    # JAX package; the port does not read them yet (input pipelines,
-    # rematerialisation, device meshes and multi-process runs arrive
-    # with later slices)
+    # JAX package.  The port runs the host pipeline on one device: its
+    # Trainer refuses another input_pipeline, a mesh and a distributed
+    # run by name (they arrive with later slices), and does not read
+    # device_budget_gb, dataset_placement or remat
     input_pipeline: str = "host"  # host | native | device
     device_budget_gb: float = 0.0
     dataset_placement: str = "replicated"  # replicated | sharded
@@ -208,3 +211,63 @@ PRESETS = {
     "mnist": mnist,
     "tiny_test": tiny_test,
 }
+
+
+def parse_mesh_shape(text: str) -> tuple:
+    """A mesh shape from the command line ('4,2', '4x2', '8') as a
+    (data, points) pair; raises ValueError on anything but one or two
+    positive ints."""
+    tokens = [t.strip() for t in str(text).replace("x", ",").split(",")]
+    tokens = [t for t in tokens if t]
+    try:
+        shape = tuple(int(t) for t in tokens)
+    except ValueError:
+        raise ValueError(f"mesh shape {text!r}: want comma- or "
+                         f"'x'-separated positive ints") from None
+    if not 1 <= len(shape) <= 2 or any(s < 1 for s in shape):
+        raise ValueError(f"mesh shape {text!r}: want (data,) or "
+                         f"(data, points) positive ints")
+    return shape + (1,) * (2 - len(shape))
+
+
+def parse_args(argv=None, preset: str = "modelnet40") -> Config:
+    """Command-line front end: ``--preset`` picks the base config, and any
+    field can be overridden with ``--<field> value`` (the reference's flag
+    names).  The same argv gives the same ``Config`` as the JAX package's
+    ``parse_args``."""
+    base = argparse.ArgumentParser(add_help=False)
+    base.add_argument("--preset", type=str, default=preset,
+                      choices=sorted(PRESETS.keys()))
+    known, _ = base.parse_known_args(argv)
+    cfg = PRESETS[known.preset]()
+
+    p = argparse.ArgumentParser(parents=[base])
+    for f in dataclasses.fields(Config):
+        t = f.type
+        default = getattr(cfg, f.name)
+        if t in ("bool", bool):
+            p.add_argument(f"--{f.name}",
+                           type=lambda s: s.lower() in ("1", "true", "yes"),
+                           default=default)
+        elif t in ("int", int):
+            p.add_argument(f"--{f.name}", type=int, default=default)
+        elif t in ("float", float):
+            p.add_argument(f"--{f.name}", type=float, default=default)
+        elif f.name == "mesh_shape":
+            p.add_argument("--mesh_shape", type=parse_mesh_shape,
+                           default=default)
+        elif f.name == "mesh_axes":
+            continue  # set programmatically
+        else:
+            p.add_argument(f"--{f.name}", type=str, default=default)
+    args = vars(p.parse_args(argv))
+    args.pop("preset", None)
+    overrides = {k: v for k, v in args.items() if hasattr(cfg, k)}
+    # Optional[int] / Optional[str] fields: "None" means None
+    for key in ("bn_momentum_decay_step", "pretrain", "normalization"):
+        if overrides.get(key) in ("None", "none", ""):
+            overrides[key] = None
+    if overrides.get("bn_momentum_decay_step") is not None:
+        overrides["bn_momentum_decay_step"] = int(
+            overrides["bn_momentum_decay_step"])
+    return cfg.replace(**overrides)

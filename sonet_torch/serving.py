@@ -8,6 +8,10 @@ with copies of its last item, and the padding is sliced off.  Per-item
 outputs do not depend on the batch in eval mode.  Dispatch is serialised
 on a lock (one card, one model).
 
+The engine serves a snapshot of the weights taken when it is built (a
+copy of the model in eval mode), as the JAX package's closes over its
+``params`` and ``batch_stats``: training the caller's module afterwards,
+which switches it to train mode, changes none of the engine's answers.
 ``ServingEngine.from_run`` restores a finished run (its ``config.json``
 and the newest checkpoint under ``ckpt/``).  The request micro-batcher,
 export and serving over a device mesh arrive with later slices.
@@ -15,6 +19,7 @@ export and serving over a device mesh arrive with later slices.
 
 from __future__ import annotations
 
+import copy
 import os
 import threading
 import time
@@ -122,9 +127,10 @@ class ServingEngine:
     def from_model(cls, model: nn.Module, cfg: Config,
                    device: str | torch.device = "cuda",
                    batch_size: Optional[int] = None) -> "ServingEngine":
-        """Serve ``model`` (built for ``cfg``) on ``device`` at batch size
-        ``batch_size`` (default ``cfg.batch_size``).  Raises when
-        ``device`` is ``cuda`` and there is no card."""
+        """Serve a snapshot of ``model`` (built for ``cfg``) on ``device`` at
+        batch size ``batch_size`` (default ``cfg.batch_size``); ``model``
+        itself is left as it is.  Raises when ``device`` is ``cuda`` and
+        there is no card."""
         return cls._serving(model, cfg, resolve_device(device),
                             batch_size or cfg.batch_size, {"source": "model"})
 
@@ -145,7 +151,8 @@ class ServingEngine:
     @classmethod
     def _serving(cls, model: nn.Module, cfg: Config, dev: torch.device,
                  B: int, origin: dict) -> "ServingEngine":
-        model = model.to(dev)
+        # a snapshot: the caller may go on training its module
+        model = copy.deepcopy(model).to(dev)
         serve = build_serve_fn(model, cfg)
 
         def fn(*arrays):

@@ -525,3 +525,82 @@ def test_som_fit_on_card_matches_cpu(cuda_device, schedule):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert torch.equal(with_tf32, on_card)
+
+
+# ---------------------------------------------------------------------------
+# point dropout, retrieval ranking and the Trainer on the card
+# ---------------------------------------------------------------------------
+
+def test_random_point_dropout_on_a_cuda_generator(cuda_device):
+    N, lower = 5000, 0.8
+    pc = torch.arange(2 * N * 3, dtype=torch.float32,
+                      device=cuda_device).reshape(2, N, 3)
+    outs = []
+    for _ in range(2):
+        gen = torch.Generator(device=cuda_device).manual_seed(3)
+        out_pc, out_sn = train.random_point_dropout(pc, -pc, gen, lower)
+        outs.append(out_pc)
+        assert out_pc.is_cuda and out_pc.shape == pc.shape
+        torch.testing.assert_close(out_sn, -out_pc, rtol=0, atol=0)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=0)
+    idx = (outs[0][0, :, 0] / 3).long().cpu()   # the source row of each slot
+    keep = len(set(idx.tolist()))
+    assert round(lower * N) - 1 <= keep < N
+    assert set(idx[keep:].tolist()) <= set(idx[:keep].tolist())
+    torch.testing.assert_close(outs[0][1] - outs[0][0],
+                               torch.full((N, 3), 3.0 * N,
+                                          device=cuda_device), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["grid", "normal"])
+def test_rank_all_on_card_equals_cpu(cuda_device, kind):
+    """Grid scores: every squared distance exact on both devices, so the
+    distances differ by the square root's last bit at most and duplicate
+    rows are true ties.  Normal scores: the squared distances within the
+    float32 rounding of |a|^2 + |b|^2 - 2 a.b, C eps (|a|^2 + |b|^2), on
+    each side."""
+    from sonet_torch import retrieval
+    rs = np.random.RandomState(0)
+    if kind == "grid":
+        s = rs.randint(-16, 17, (200, 55)).astype(np.float32) / 8
+        s[100:120] = s[:20]                                  # exact ties
+    else:
+        s = (5 * rs.randn(200, 55)).astype(np.float32)
+    want = retrieval.rank_all(s)
+    got = retrieval.rank_all(torch.from_numpy(s).to(cuda_device))
+    n2 = (s.astype(np.float64) ** 2).sum(1)
+    eps = float(np.finfo(np.float32).eps)
+    for q, ((gi, gd), (wi, wd)) in enumerate(zip(got, want)):
+        np.testing.assert_array_equal(gi, wi)
+        if kind == "grid":
+            np.testing.assert_allclose(gd, wd, rtol=2 * eps, atol=0)
+        else:
+            bound = 2 * 55 * eps * (n2[q] + n2[gi])
+            diff = np.abs(gd.astype(np.float64) ** 2
+                          - wd.astype(np.float64) ** 2)
+            assert (diff <= bound).all(), q
+
+
+def test_trainer_on_card(cuda_device, tmp_path):
+    from sonet_torch import retrieval
+    from sonet_torch.train.trainer import Trainer
+    cfg = config.tiny_test().replace(
+        checkpoints_dir=str(tmp_path), name="card",
+        random_pc_dropout_lower_limit=0.8)
+    t = Trainer(cfg, quiet=True, resume=False, device=cuda_device)
+    assert t.train_set.som_node.shape == (64, 16, 3)
+    before = smw.windowed_vals.launches
+    metrics = t.fit(epochs=1)
+    # one launch a train step and an eval batch (16 + 4)
+    assert smw.windowed_vals.launches - before == 20
+    assert t.state.step == 16 and np.isfinite(metrics["loss"])
+    assert all(p.is_cuda for p in t.model.parameters())
+    t.request_stop()
+    t.fit(epochs=1)
+    t2 = Trainer(cfg, quiet=True, device=cuda_device)
+    assert t2.state.step == 17
+    a, b = t.model.state_dict(), t2.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    scores, labels, ids = retrieval.extract_scores(
+        t.eval_step, t.state, t.test_loader, t._device_batch)
+    assert scores.shape == (16, cfg.classes) and np.isfinite(scores).all()

@@ -74,6 +74,38 @@ class TestServingEngine:
         assert engine.manifest["pooling"] == "scatter"
         assert engine.manifest["platforms"] == ["cpu"]
 
+    def test_engine_serves_a_snapshot_of_the_weights(self):
+        """An engine built from a train state's live module answers as the
+        eval forward did when it was built, after a train step has switched
+        that module to train mode and moved its weights; per-item answers
+        do not depend on the batch, and serving moves none of the module's
+        running statistics."""
+        from sonet_torch import train as ttrain
+        cfg = tcfg.tiny_test()
+        state = ttrain.init_state(cfg, device="cpu", seed=0,
+                                  steps_per_epoch=4)
+        engine = ServingEngine.from_model(state.model, cfg, device="cpu",
+                                          batch_size=4)
+        req = _request(cfg, 4, seed=3)
+        inputs = [torch.from_numpy(req[k]) for k in ("pc", "sn", "node")]
+        state.model.eval()
+        with torch.no_grad():
+            want, _ = state.model(*inputs)
+        train_step, _ = ttrain.make_steps(cfg, 4)
+        batch = dict(zip(("pc", "sn", "node"), inputs),
+                     label=torch.tensor([0, 1, 2, 3]))
+        train_step(state, batch, torch.Generator().manual_seed(0))
+        assert state.model.training
+        key = "encoder.first_pointnet.PointLayer_0.BatchNorm_0.running_mean"
+        stats = state.model.state_dict()[key].clone()
+        got = engine.predict(req)
+        np.testing.assert_allclose(got, want.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(engine.predict({k: v[:1] for k, v in
+                                                   req.items()}),
+                                   got[:1], **SERVE_TOL)
+        assert torch.equal(state.model.state_dict()[key], stats)
+        assert state.model.training
+
     def test_bad_inputs_rejected(self, served):
         cfg, _, engine = served
         req = _request(cfg, 2)
@@ -173,7 +205,12 @@ class TestImportBoundary:
                 "sonet_torch.convert, sonet_torch.ops.cuda, "
                 "sonet_torch.ops.iou, sonet_torch.nn.heads, "
                 "sonet_torch.train.checkpoints, sonet_torch.nn.decoder, "
-                "sonet_torch.ops.chamfer, sonet_torch.som\n"
+                "sonet_torch.ops.chamfer, sonet_torch.som, "
+                "sonet_torch.data, sonet_torch.retrieval, "
+                "sonet_torch.train.trainer, sonet_torch.cli, "
+                "sonet_torch.tasks.classify, sonet_torch.tasks.partseg, "
+                "sonet_torch.tasks.autoencode, sonet_torch.tasks.retrieve, "
+                "sonet_torch.utils.logging, sonet_torch.utils.visualize\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'flax', 'optax', 'sonet_tpu')]\n"
                 "print(bad); sys.exit(1 if bad else 0)")
