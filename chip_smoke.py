@@ -17,7 +17,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    of the captured launches, which it cannot.  Kernel 1
    (``segment_max_window``) is also read from a torch.profiler trace, its
    fill and its main kernel apart, and timed on the float32 and the B=64
-   inputs and at the part segmenter's shape (8, 3072, 384); each of its
+   inputs, at the part segmenter's shape (8, 3072, 384) and at the MNIST
+   classifier's (8, 1536, 384) with M=25 (ids from a real top-k
+   assignment of fabricated digits to nodes fitted on the card); each of its
    cases must take the kernel (bulk or direct) that its shape and
    alignment name.  Kernel 2 (``segment_argmax``) is on no
    path of the model and is held here only, also against kernel 1's
@@ -89,9 +91,31 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``rank_all`` on the card, and that ranking held against the CPU's; a
    gallery exactly when matplotlib is installed; mAP and P@k; the
    extraction and the ranking timed;
-14. a JSON line of every kernel with its launches on each of the eight
+14. reproduce: 40 classes of superellipsoid meshes (3 a class) sampled by
+   ``sonet-torch prep sample --points 10000 --normalize`` and packed as a
+   ModelNet40 ``.tar.gz``; ``sonet-torch reproduce --preset modelnet40
+   --epochs 1`` ingests it, fits its nodes on the card (``prep som``),
+   checks the tree, trains one epoch at B=8, N=5000 and prints the
+   verdict: below the 0.918 gate, rc 1; the same command again reuses the
+   tree and the run and gives the same ``best``; ``prep som``'s fit of 64
+   clouds of 4096 points timed;
+15. infer: ``sonet-torch infer`` on that run's test split (40 items, the
+   last batch padded): 40 rows, its accuracy equal to the run's own
+   ``Trainer.evaluate()`` over the same items; clouds/s;
+16. mnist: a fabricated ``mnist.npz`` (2,048 train and 512 test digits),
+   ``sonet-torch classify --preset mnist --epochs 1`` (nodes fitted on the
+   card) and ``sonet-torch infer``: finite metrics, every launch of kernel
+   1 at (8, 1536, 384) with M=25, the nodes' quantization error within 1%
+   of a CPU fit's; a train step timed;
+17. serve_http: the reproduce run through ``ServingEngine.from_run`` with
+   ``start_microbatch(5)`` behind ``tasks.serve.make_server`` on
+   127.0.0.1: 16 concurrent B'=1 requests, each within the bf16 rule of
+   the engine's direct predict, sharing dispatches; B'=1 request times
+   with micro-batching on and off; ``drain_server`` with a request in
+   flight: /healthz and a new predict answer 503, the request finishes;
+18. a JSON line of every kernel with its launches on each of the twelve
    paths, error and times;
-15. last line: {"ok": true, "device": {...}}.
+19. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
 and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
@@ -296,15 +320,54 @@ def _bound(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, bound_by
 
 
+def _digits(np, n, seed):
+    """``n`` 28x28 uint8 images of the ten digit classes and their labels:
+    each class a Lissajous stroke of its own, drawn bright with a random
+    offset, scale and phase."""
+    rs = np.random.RandomState(seed)
+    labels = rs.randint(0, 10, n)
+    t = np.linspace(0.0, 1.0, 160)[None]                       # (1, 160)
+    fa, fb = (labels % 5 + 1)[:, None], (labels // 5 + 1)[:, None]
+    phase = rs.uniform(0, np.pi, (n, 1))
+    r = rs.uniform(6.0, 10.0, (n, 2))
+    c = rs.uniform(12.0, 16.0, (n, 2))
+    x = np.rint(c[:, :1] + r[:, :1] * np.sin(2 * np.pi * fa * t + phase))
+    y = np.rint(c[:, 1:] + r[:, 1:] * np.sin(2 * np.pi * fb * t))
+    img = np.zeros((n, 28, 28), np.uint8)
+    rows = np.repeat(np.arange(n), t.shape[1])
+    img[rows, np.clip(y, 0, 27).astype(int).ravel(),
+        np.clip(x, 0, 27).astype(int).ravel()] = rs.randint(
+            160, 256, rows.shape)
+    return img, labels.astype(np.uint8)
+
+
+def _mnist_ids(torch, np, dev):
+    """Sorted node ids of ``config.mnist()``'s first pooling, (8, 1536):
+    a real ``assign_topk`` (k=3) of 8 fabricated digits' 512-point clouds
+    to their 5x5 nodes, fitted on the card."""
+    from sonet_torch import som
+    from sonet_torch.data.mnist import image_to_points
+    from sonet_torch.ops import assign_topk
+    img, _ = _digits(np, 8, seed=5)
+    rng = np.random.default_rng(0)
+    pc = torch.from_numpy(np.stack([image_to_points(i, 512, rng)
+                                    for i in img])).to(dev)
+    nodes = som.fit(pc, som.SOMConfig(5, 5, 2), device=dev)
+    ids = assign_topk(pc, nodes, 3).min_idx
+    return torch.sort(ids, dim=1).values.contiguous()
+
+
 def phase_kernels():
     """Every kernel vs its plain version; returns their lines of the
     result."""
+    import numpy as np
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     B, N, k, M = 8, 5000, 3, 64
     ids = _flagship_ids(torch, B, N, M, k, gen, dev)           # (8, 15000)
-    return [_check_segment_max_window(torch, gen, ids, M),
+    return [_check_segment_max_window(torch, gen, ids, M,
+                                      _mnist_ids(torch, np, dev)),
             _check_segment_argmax(torch, gen, ids, M)]
 
 
@@ -438,11 +501,12 @@ def _time_kernel1(torch, data, ids, M):
     return t
 
 
-def _check_segment_max_window(torch, gen, ids, M):
+def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
     """Kernel 1 on the flagship inputs (bf16 and f32 at B=8, bf16 at B=64),
-    the part segmenter's input (8, 3072, 384) and edge cases, each equal
-    to the plain version and on the kernel its shape and alignment name;
-    then timed."""
+    the part segmenter's input (8, 3072, 384), the MNIST classifier's
+    (8, 1536, 384) with M=25 (``ids_mnist``) and edge cases, each equal to
+    the plain version and on the kernel its shape and alignment name; then
+    timed."""
     import ctypes
     from sonet_torch.ops import cuda
     from sonet_torch.ops.cuda.segment_max_window import (
@@ -475,6 +539,8 @@ def _check_segment_max_window(torch, gen, ids, M):
          ids64, M, "bulk"),
         ("part segmenter bf16 sorted", rand((B, 3072, C), torch.bfloat16),
          ids_seg, M, "bulk"),
+        ("MNIST classifier bf16 sorted, M=25",
+         rand((B, 1536, C), torch.bfloat16), ids_mnist, 25, "bulk"),
         ("unsorted f32", rand((2, 1000, 96), torch.float32), ids_small, 16,
          "bulk"),
         ("ragged N=1001, odd C=33, bf16",
@@ -510,6 +576,7 @@ def _check_segment_max_window(torch, gen, ids, M):
     t_f32 = _time_kernel1(torch, data_f32, ids, M)
     t_b64 = _time_kernel1(torch, data64, ids64, M)
     t_seg = _time_kernel1(torch, cases[3][1], ids_seg, M)
+    t_mnist = _time_kernel1(torch, cases[4][1], ids_mnist, 25)
     host_us = host_us_per_call(lambda: windowed_vals(data, ids, M))
     base = torch.empty((B, M, C), dtype=data.dtype, device=dev)
     idx = ids.long()[..., None].expand(B, kN, C).contiguous()
@@ -536,7 +603,11 @@ def _check_segment_max_window(torch, gen, ids, M):
             "b64_bound_ms": t_b64["bound_ms"],
             "seg_ms": t_seg["event_ms"], "seg_graph_ms": t_seg["graph_ms"],
             "seg_main_device_ms": t_seg["main_ms"],
-            "seg_bound_ms": t_seg["bound_ms"]}
+            "seg_bound_ms": t_seg["bound_ms"],
+            "mnist_ms": t_mnist["event_ms"],
+            "mnist_graph_ms": t_mnist["graph_ms"],
+            "mnist_main_device_ms": t_mnist["main_ms"],
+            "mnist_bound_ms": t_mnist["bound_ms"]}
 
 
 def _check_segment_argmax(torch, gen, ids, M):
@@ -1542,6 +1613,538 @@ def phase_retrieve(kernel_counters, on_path, runs):
     return launches
 
 
+class _Tee:
+    """A text stream that writes through to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        import io
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cli_output(argv):
+    """(exit code, standard output) of ``sonet-torch <argv>`` run in this
+    process; its output is shown as it comes."""
+    import contextlib
+    import torch
+    from sonet_torch import cli
+    log(f"sonet-torch {' '.join(argv)}")
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    return rc, tee.copy.getvalue()
+
+
+def _superellipsoid_obj(np, path, e1, e2, axes, turn, nu=24, nv=48):
+    """A superellipsoid mesh as a Wavefront .obj of quads: latitude
+    exponent ``e1``, longitude exponent ``e2``, semi-axes ``axes``, turned
+    by ``turn`` radians about the vertical axis."""
+    def spow(x, e):
+        return np.sign(x) * np.abs(x) ** e
+    th = np.linspace(-np.pi / 2, np.pi / 2, nu)[:, None]
+    ph = np.linspace(-np.pi, np.pi, nv, endpoint=False)[None]
+    x = axes[0] * spow(np.cos(th), e1) * spow(np.cos(ph), e2)
+    y = axes[1] * spow(np.cos(th), e1) * spow(np.sin(ph), e2)
+    z = np.broadcast_to(axes[2] * spow(np.sin(th), e1), x.shape)
+    c, s_ = np.cos(turn), np.sin(turn)
+    v = np.stack([c * x - s_ * y, s_ * x + c * y, z], -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu - 1), np.arange(nv), indexing="ij")
+    a = i * nv + j
+    b = i * nv + (j + 1) % nv
+    quads = np.stack([a, b, b + nv, a + nv], -1).reshape(-1, 4) + 1
+    with open(path, "w") as f:
+        f.write("".join(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n" for p in v))
+        f.write("".join(f"f {q[0]} {q[1]} {q[2]} {q[3]}\n" for q in quads))
+
+
+def _modelnet_archive(np, root, classes=40, shapes=3):
+    """A ModelNet40 archive as a user meets one: 40 classes of
+    superellipsoids (8 pairs of exponents x 5 sets of semi-axes), 3 meshes
+    a class and one more in the first, sampled by ``sonet-torch prep
+    sample`` at 10,000 points with normals, packed in the ModelNet layout
+    (``<class>/<name>.npy`` of (10000, 6); split lists of 2 train shapes a
+    class and the rest for test: 80 and 41, so that a test split in
+    batches of 8 ends in a padded batch) as a ``.tar.gz``.  Returns its
+    path."""
+    import tarfile
+    rs = np.random.RandomState(7)
+    exps = [(0.3, 0.3), (0.3, 1.0), (1.0, 0.3), (1.0, 1.0), (1.0, 2.0),
+            (2.0, 1.0), (2.0, 2.0), (0.6, 1.6)]
+    ratios = [(1.0, 1.0, 1.0), (1.0, 0.5, 0.5), (0.5, 0.5, 1.0),
+              (1.0, 0.7, 0.3), (0.4, 1.0, 0.8)]
+    meshes, tree = os.path.join(root, "meshes"), os.path.join(root, "tree")
+    names = [f"shape{c:02d}" for c in range(classes)]
+    counts = [shapes + (c == 0) for c in range(classes)]
+    for c, cls in enumerate(names):
+        os.makedirs(os.path.join(meshes, cls))
+        e1, e2 = exps[c % 8]
+        for j in range(counts[c]):
+            axes = np.asarray(ratios[c // 8]) * rs.uniform(0.9, 1.1, 3)
+            _superellipsoid_obj(np, os.path.join(
+                meshes, cls, f"{cls}_{j + 1:04d}.obj"), e1, e2, axes,
+                rs.uniform(0, 2 * np.pi))
+    sampled = os.path.join(root, "sampled")
+    rc, _ = _cli_output(["prep", "sample", "--root", meshes, "--out",
+                         sampled, "--points", "10000", "--normalize"])
+    if rc:
+        raise AssertionError(f"sonet-torch prep sample exited with {rc}")
+    splits = {"train": [], "test": []}
+    for cls, count in zip(names, counts):
+        os.makedirs(os.path.join(tree, cls))
+        for j in range(count):
+            name = f"{cls}_{j + 1:04d}"
+            with np.load(os.path.join(sampled, cls, name + ".npz")) as z:
+                pc, sn = z["pc"], z["sn"]
+            if pc.shape != (10000, 3) or not np.isfinite(pc).all():
+                raise AssertionError(f"prep sample: bad cloud {pc.shape}")
+            np.save(os.path.join(tree, cls, name + ".npy"),
+                    np.concatenate([pc, sn], 1).astype(np.float32))
+            splits["test" if j >= shapes - 1 else "train"].append(name)
+    with open(os.path.join(tree, f"modelnet{classes}_shape_names.txt"),
+              "w") as f:
+        f.write("\n".join(names) + "\n")
+    for mode, entries in splits.items():
+        with open(os.path.join(tree, f"modelnet{classes}_{mode}.txt"),
+                  "w") as f:
+            f.write("\n".join(entries) + "\n")
+    path = os.path.join(root, "modelnet40.tar.gz")
+    with tarfile.open(path, "w:gz") as t:
+        t.add(tree, arcname="modelnet40")
+    return path
+
+
+def _verdict(out):
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"reproduce"')]
+    if len(lines) != 1:
+        raise AssertionError("sonet-torch reproduce printed no verdict")
+    return json.loads(lines[0])
+
+
+def phase_reproduce(kernel_counters, on_path, runs):
+    """A published-archive reproduction as a user runs it: 40 classes of
+    meshes sampled by ``sonet-torch prep sample`` and packed as a ModelNet40
+    archive (80 train, 41 test shapes); ``sonet-torch reproduce --preset
+    modelnet40`` ingests it, fits its SOM nodes on the card (``prep som``,
+    batches of 64 clouds of 4096 points), checks the tree, trains one
+    epoch at B=8, N=5000 and prints the verdict, below the 0.918 gate (rc 1); the same command again
+    reuses the tree and the run.  Returns (the first command's kernel
+    launches, the run directory)."""
+    import numpy as np
+    import torch
+    from sonet_torch import som
+
+    root = os.path.join(runs, "reproduce_data")
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    arch = _modelnet_archive(np, root)
+    log(f"reproduce: 40 x 3 + 1 superellipsoid meshes sampled and packed in "
+        f"{time.perf_counter() - t0:.3f} s ({os.path.getsize(arch) / 1e6:.1f} "
+        f"MB archive)")
+    dest = os.path.join(root, "modelnet40")
+    argv = ["reproduce", "--preset", "modelnet40", "--archive", arch,
+            "--dest", dest, "--epochs", "1", "--checkpoint_every", "1",
+            "--checkpoints_dir", runs, "--name", "reproduce",
+            "--device", "cuda"]
+    _reset(kernel_counters)
+    t0 = time.perf_counter()
+    rc, out = _cli_output(argv)
+    took = time.perf_counter() - t0
+    launches = _launch_counts(kernel_counters)
+    v = _verdict(out)
+    log(f"sonet-torch reproduce took {took:.3f} s (ingest, prep som, check, "
+        f"one epoch, its eval): rc {rc}, verdict {v}; kernel launches "
+        f"{launches}")
+    nodes = os.path.join(dest, "8x8_som_nodes")
+    n_nodes = sum(len(f) for _, _, f in os.walk(nodes))
+    if (rc != 1 or v["pass"] is not False or v["gate"] != 0.918
+            or v["metric"] != "accuracy" or not 0.0 <= v["best"] <= 0.918
+            or n_nodes != 121 or "fitting 8x8 SOM nodes" not in out
+            or '"ok": true' not in out):
+        raise AssertionError("sonet-torch reproduce: want the whole chain, "
+                             "a verdict below the gate and rc 1")
+    for n in on_path:
+        if launches[n] != 10 + 6:
+            raise AssertionError(f"{n} launched {launches[n]} times in 10 "
+                                 f"steps and 6 eval batches")
+    rc2, out2 = _cli_output(argv)
+    v2 = _verdict(out2)
+    log(f"again: rc {rc2}, best {v2['best']} (first run {v['best']})")
+    if (rc2 != 1 or "reusing ingested tree" not in out2
+            or "1/1 epochs already trained" not in out2
+            or "fitting" in out2 or v2["best"] != v["best"]):
+        raise AssertionError("sonet-torch reproduce: the second run did not "
+                             "resume the first")
+
+    # prep som's fit alone, at its batch: 64 clouds of 4096 points
+    import glob
+    rng = np.random.default_rng(0)
+    files = sorted(glob.glob(os.path.join(dest, "shape*", "*.npy")))[:64]
+    x = torch.from_numpy(np.stack([
+        np.load(f)[rng.choice(10000, 4096, replace=False), :3]
+        for f in files])).cuda()
+    cfg = som.SOMConfig(8, 8, 3)
+    fit_ms = time_ms(lambda: som.fit(x, cfg, device="cuda"), reps=5)
+    log(f"prep som's fit of {len(x)} clouds of 4096 points on the card: "
+        f"{fit_ms:.4f} ms ({len(x) / fit_ms * 1e3:.1f} clouds/s)")
+    return launches, os.path.join(runs, "reproduce")
+
+
+def _timed_clouds(items, batch, chunk=16):
+    """The clouds that ``sonet-torch infer`` times: those after its first
+    chunk of ``min(chunk, (batches + 1) // 2)`` batches (padding left out,
+    as infer counts only valid items)."""
+    batches = -(-items // batch)
+    return items - batch * max(1, min(chunk, (batches + 1) // 2))
+
+
+def phase_infer(kernel_counters, on_path, run, card, runs):
+    """``sonet-torch infer`` on the reproduce run's test split: 41 items in
+    6 batches, the last padded (1 valid row of 8); its accuracy equal to
+    the run's own ``Trainer.evaluate()`` on the card over the same items.
+    Then infer's rate at ModelNet40 width over more items, the "trainer"
+    run's 160 test clouds three times, against the eval step alone by
+    events.  Returns the command's kernel launches."""
+    import csv
+    import numpy as np
+    from sonet_torch.config import load_config
+    from sonet_torch.train.trainer import Trainer
+
+    out_dir = os.path.join(run, "infer")
+    _reset(kernel_counters)
+    rc, out = _cli_output(["infer", "--run", run, "--device", "cuda",
+                           "--out", out_dir])
+    launches = _launch_counts(kernel_counters)
+    summary = json.loads(out.strip().splitlines()[-1])
+    with open(os.path.join(out_dir, "predictions.csv")) as f:
+        rows = list(csv.reader(f))
+    log(f"sonet-torch infer: {summary}; {len(rows) - 1} rows from 6 "
+        f"batches of 8, the last with {41 - 5 * 8} valid; kernel launches "
+        f"{launches}")
+    if (rc != 0 or summary["items"] != 41 or len(rows) != 42
+            or rows[0] != ["index", "label", "pred", "correct"]
+            or [int(r[0]) for r in rows[1:]] != list(range(41))):
+        raise AssertionError("sonet-torch infer: bad summary or rows")
+    for n in on_path:
+        if launches[n] != 6:
+            raise AssertionError(f"{n} launched {launches[n]} times for 6 "
+                                 f"batches")
+    # the run's Trainer over the same items: its test loader one epoch on,
+    # as infer's is (both draw the points of the JAX package's inference)
+    trainer = Trainer(load_config(os.path.join(run, "config.json")),
+                      quiet=True, device="cuda")
+    trainer.test_loader.skip_epoch()
+    ev = trainer.evaluate()
+    log(f"Trainer.evaluate() on the run: {ev}")
+    if (ev["accuracy"] != summary["accuracy"]
+            or abs(ev["loss"] - summary["loss"]) > 1e-6 * max(1.0, ev["loss"])
+            or abs(sum(int(r[3]) for r in rows[1:]) / 41
+                   - summary["accuracy"]) > 1e-12):
+        raise AssertionError("sonet-torch infer disagrees with the run's "
+                             "Trainer")
+
+    # infer's rate at this width: 160 clouds, 4 batches to a fetch, the
+    # first fetch's 32 left out; the eval step alone on one batch by events
+    rates = []
+    for i in range(3):
+        rc, out = _cli_output(["infer", "--run", os.path.join(runs, "trainer"),
+                               "--device", "cuda", "--scan_chunk", "4",
+                               "--out", os.path.join(runs, f"infer_rate{i}")])
+        got = json.loads(out.strip().splitlines()[-1])
+        if rc != 0 or got["items"] != 160 or not got["clouds_per_sec"] > 0:
+            raise AssertionError("sonet-torch infer on the trainer run failed")
+        rates.append(got["clouds_per_sec"])
+    batch = _to_card(next(iter(trainer.test_loader)))
+    step_ms = time_ms(lambda: trainer.eval_step(trainer.state, batch), reps=20)
+    log(f"infer on {card}, B=8, N=5000: {rates} clouds/s over "
+        f"{_timed_clouds(160, 8, 4)} timed clouds each, host clock after "
+        f"the first chunk; the eval step alone {step_ms:.4f} ms by events "
+        f"({8 / step_ms * 1e3:.1f} clouds/s); the 41-item split: "
+        f"{summary['clouds_per_sec']} clouds/s over "
+        f"{_timed_clouds(41, 8)} timed clouds")
+    return launches
+
+
+def phase_mnist(kernel_counters, on_path, runs, card):
+    """MNIST as a user runs it: a fabricated ``mnist.npz`` (2,048 train and
+    512 test digits drawn from a seed), ``sonet-torch classify --preset
+    mnist`` for one epoch (its datasets fit their 5x5 2-D nodes on the
+    card), then ``sonet-torch infer`` on the run.  Kernel 1 must see only
+    the (8, 1536, 384) bf16, M=25 shape; the nodes are held by their
+    quantization error against a CPU fit.  Returns the kernel launches of
+    the two commands."""
+    import numpy as np
+    import torch
+    from sonet_torch import config, som
+    from sonet_torch.data.mnist import MNISTPointCloudDataset
+    from sonet_torch.ops.cuda import segment_max_window as smw
+    from sonet_torch.train.trainer import Trainer
+
+    root = os.path.join(runs, "mnist_data")
+    os.makedirs(root)
+    xtr, ytr = _digits(np, 2048, seed=1)
+    xte, yte = _digits(np, 512, seed=2)
+    np.savez(os.path.join(root, "mnist.npz"), x_train=xtr, y_train=ytr,
+             x_test=xte, y_test=yte)
+    flags = ["--preset", "mnist", "--dataroot", root, "--epochs", "1",
+             "--checkpoints_dir", runs, "--name", "mnist"]
+    cfg = config.parse_args(flags)
+    run = os.path.join(runs, "mnist")
+
+    # every launch of kernel 1 in the two commands, by its shape
+    real, shapes = smw._kernel(), {}
+
+    def recording(*args):
+        key = tuple(args[4:8])                      # B, N, C, M
+        shapes[key] = shapes.get(key, 0) + 1
+        return real(*args)
+    _reset(kernel_counters)
+    smw._fn = recording
+    try:
+        t0 = time.perf_counter()
+        _cli(["classify", "--device", "cuda"] + flags)
+        took = time.perf_counter() - t0
+        rc, out = _cli_output(["infer", "--run", run, "--device", "cuda"])
+    finally:
+        smw._fn = real
+    launches = _launch_counts(kernel_counters)
+    summary = json.loads(out.strip().splitlines()[-1])
+    logged = _logged(run, "test_loss")
+    step = _logged(run, "train_sec_per_step")["train_sec_per_step"]
+    log(f"{_describe(cfg)}: sonet-torch classify took {took:.3f} s (2,048 + "
+        f"512 digits to clouds, nodes fitted on the card, 256 steps, 64 "
+        f"eval batches): test loss {logged['test_loss']}, accuracy "
+        f"{logged['test_accuracy']}; a step with the loader in "
+        f"{step * 1e3:.4f} ms; infer {summary}; kernel launches {launches} "
+        f"by (B, N, C, M) {shapes}")
+    want = {(8, 1536, 384, 25): 256 + 64 + 64}
+    if (rc != 0 or summary["items"] != 512 or shapes != want
+            or not np.isfinite(logged["test_loss"])
+            or not np.isfinite(summary["loss"])):
+        raise AssertionError("MNIST: bad metrics or kernel 1 shapes")
+    for n in on_path:
+        if launches[n] != 256 + 64 + 64:
+            raise AssertionError(f"{n} launched {launches[n]} times")
+
+    # the nodes the command fitted on the card, against a CPU fit
+    ds = MNISTPointCloudDataset(root, "train", cfg, device="cuda")  # cache
+    n_cpu = 256
+    som_cfg = som.SOMConfig(cfg.rows, cfg.cols, 2)
+    on_cpu = som.fit(ds.points[:n_cpu], som_cfg, device="cpu")
+    x = torch.from_numpy(ds.points[:n_cpu])
+    q_card = _quantization_error(torch, x, torch.from_numpy(
+        ds.som_node[:n_cpu]))
+    q_cpu = _quantization_error(torch, x, on_cpu)
+    log(f"MNIST nodes ({ds.som_node.shape}) fitted on the card: "
+        f"quantization error {q_card} vs the CPU fit's {q_cpu} over "
+        f"{n_cpu} clouds (tolerance {SOM_QE_RTOL} x)")
+    if ds.som_node.shape != (2048, 25, 2) or abs(q_card - q_cpu) > (
+            SOM_QE_RTOL * q_cpu):
+        raise AssertionError("MNIST: the card's nodes disagree with the CPU")
+
+    # one train step and one eval step alone, by events
+    trainer = Trainer(cfg, quiet=True, device="cuda")
+    batch = _to_card(next(iter(trainer.train_loader)))
+    def step():
+        trainer.train_step(trainer.state, batch, trainer.generator)
+    step_ms = time_ms(step, reps=20)
+    wall, busy, rows = _busy_share(lambda: [step() for _ in range(5)])
+    log(f"MNIST train step at B=8 on the card: {step_ms:.4f} ms by events "
+        f"({8 / step_ms * 1e3:.1f} clouds/s); under torch.profiler "
+        f"{busy * 1e3 / 5:.4f} ms of device time in {rows // 5} device rows "
+        f"a step, the card busy {busy / wall:.1%} of the 5 steps")
+    eval_ms = time_ms(lambda: trainer.eval_step(trainer.state, batch),
+                      reps=20)
+    log(f"MNIST infer on {card}, B=8, N=512: {summary['clouds_per_sec']} "
+        f"clouds/s over {_timed_clouds(512, 8)} timed clouds, host clock "
+        f"after the first chunk; the eval step alone {eval_ms:.4f} ms by "
+        f"events ({8 / eval_ms * 1e3:.1f} clouds/s)")
+    return launches
+
+
+def _post(url, body, ctype):
+    import urllib.request
+    req = urllib.request.Request(url, data=body,
+                                 headers={"Content-Type": ctype})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read()
+
+
+def _status(fn):
+    """The HTTP status of ``fn()``'s request, an error status included."""
+    import urllib.error
+    try:
+        return fn()[0]
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def phase_serve_http(kernel_counters, on_path, run):
+    """The reproduce run served over HTTP as a user runs it:
+    ``ServingEngine.from_run`` with the micro-batcher on (5 ms window) and
+    ``tasks.serve.make_server`` on 127.0.0.1; 16 concurrent B'=1 npz
+    requests, each answer held against the engine's direct predict of the
+    same cloud and nearer to it than to any other cloud's; 200 requests in
+    a row and 8 bursts of 16 with micro-batching on and as many off, in
+    alternating rounds; then ``drain_server`` with a request in flight.
+    Returns the kernel launches of the first 16 requests."""
+    import io
+    import threading
+    import numpy as np
+    from sonet_torch.config import load_config
+    from sonet_torch.serving import ServingEngine
+    from sonet_torch.tasks import serve
+
+    engine = ServingEngine.from_run(run, device="cuda")
+    engine.warmup()
+    names = engine.input_names
+    clouds = _clouds(np, 16, load_config(os.path.join(run, "config.json")),
+                     seed=21)
+    want = engine.predict({n: clouds[n] for n in names})
+
+    def body(i):
+        buf = io.BytesIO()
+        np.savez(buf, **{n: clouds[n][i:i + 1] for n in names})
+        return buf.getvalue()
+    bodies = [body(i) for i in range(16)]
+    engine.start_microbatch(5.0)
+    srv = serve.make_server(engine, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def predict(i):
+        _, raw = _post(url + "/v1/predict?format=npz", bodies[i],
+                       "application/x-npz")
+        with np.load(io.BytesIO(raw)) as z:
+            return z["output"]
+
+    def concurrent():
+        got = [None] * 16
+        threads = [threading.Thread(target=lambda i=i: got.__setitem__(
+            i, predict(i))) for i in range(16)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        return got, (time.perf_counter() - t0) * 1e3
+
+    # how far each cloud's direct answer lies from every other's: an
+    # answer routed to another caller would be at least this far off
+    scale = max(1.0, float(np.abs(want).max()))
+    apart = np.abs(want[:, None] - want[None]).max(-1) / scale
+    np.fill_diagonal(apart, np.inf)
+
+    def misrouted(got):
+        """The rows of ``got`` not within LOGIT_RTOL of their own cloud's
+        direct answer, or nearer to another cloud's; and the worst
+        distance to the own answer."""
+        d = np.abs(np.stack([g[0] for g in got])[:, None] - want[None]
+                   ).max(-1) / scale
+        own = np.diag(d).copy()
+        np.fill_diagonal(d, np.inf)
+        bad = [i for i in range(len(got))
+               if own[i] > LOGIT_RTOL or own[i] >= d[i].min()]
+        return bad, float(own.max())
+
+    try:
+        before = engine.stats()
+        _reset(kernel_counters)
+        got, wall_ms = concurrent()
+        launches = _launch_counts(kernel_counters)
+        s = engine.stats()
+        bad, worst = misrouted(got)
+        log(f"16 concurrent B'=1 HTTP requests, micro-batching on (5 ms): "
+            f"{wall_ms:.4f} ms in all; {s['requests'] - before['requests']} "
+            f"requests in {s['dispatches'] - before['dispatches']} "
+            f"dispatches, {s['coalesced_requests']} coalesced; each answer "
+            f"within {worst:.3g} of the largest score of its direct predict "
+            f"(tolerance {LOGIT_RTOL}), two clouds' direct answers at least "
+            f"{apart.min():.3g} apart; answers off or nearer another cloud's "
+            f"{bad}; kernel launches {launches}")
+        if (bad or s["coalesced_requests"] == 0
+                or s["dispatches"] - before["dispatches"] >= 16
+                or s["requests"] - before["requests"] != 16):
+            raise AssertionError("micro-batched HTTP serving is wrong")
+        for n in on_path:
+            if launches[n] != s["dispatches"] - before["dispatches"]:
+                raise AssertionError(f"{n} launched {launches[n]} times")
+
+        # 4 rounds, the modes' order alternating: 50 requests in a row and
+        # 2 bursts of 16 each; every burst's answers held as the first's
+        lone = {"on": [], "off": []}
+        burst = {"on": [], "off": []}
+        for r in range(4):
+            for mode in (("on", "off"), ("off", "on"))[r % 2]:
+                if mode == "on":
+                    engine.start_microbatch(5.0)
+                else:
+                    engine.stop_microbatch()
+                for i in range(50):
+                    t0 = time.perf_counter()
+                    predict(i % 16)
+                    lone[mode].append((time.perf_counter() - t0) * 1e3)
+                for _ in range(2):
+                    got, ms = concurrent()
+                    if misrouted(got)[0]:
+                        raise AssertionError(f"a burst with micro-batching "
+                                             f"{mode} misrouted answers")
+                    burst[mode].append(ms)
+        engine.start_microbatch(5.0)
+        for mode in ("on", "off"):
+            q = statistics.quantiles(lone[mode], n=10)
+            log(f"HTTP B'=1 request, micro-batching {mode}, {len(lone[mode])} "
+                f"in a row: median {statistics.median(lone[mode]):.4f} ms, "
+                f"p10 {q[0]:.4f}, p90 {q[-1]:.4f}, max {max(lone[mode]):.4f}; "
+                f"{len(burst[mode])} bursts of 16: median "
+                f"{statistics.median(burst[mode]):.4f} ms, min "
+                f"{min(burst[mode]):.4f}, max {max(burst[mode]):.4f}")
+
+        # drain with one request held in flight on the engine's lock
+        held_out = {}
+        with engine._lock:
+            held = threading.Thread(target=lambda: held_out.update(
+                out=predict(0)))
+            held.start()
+            deadline = time.time() + 30
+            while srv._inflight == 0 and time.time() < deadline:
+                time.sleep(0.01)
+            drained = {}
+            d = threading.Thread(target=lambda: drained.update(
+                clean=serve.drain_server(srv, engine)))
+            d.start()
+            srv.draining.wait(30)
+            health = _status(lambda: _get(url + "/healthz"))
+            refused = _status(lambda: _post(url + "/v1/predict?format=npz",
+                                            bodies[1], "application/x-npz"))
+        held.join(60)
+        d.join(60)
+        held_ok = "out" in held_out and float(np.abs(
+            held_out["out"][0] - want[0]).max()) <= LOGIT_RTOL * max(
+                1.0, float(np.abs(want[0]).max()))
+        log(f"draining: /healthz {health}, a new predict {refused}; the "
+            f"request in flight answered {held_ok}, drain clean "
+            f"{drained.get('clean')}")
+        if (health, refused, drained.get("clean"), held_ok) != (
+                503, 503, True, True) or engine.stats()["microbatch"]:
+            raise AssertionError("drain_server: wrong answers while draining")
+    finally:
+        serve.drain_server(srv, engine)
+    return launches
+
+
+def _get(url):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=60) as r:
+        return r.status, r.read()
+
+
 def _device_rows(events):
     """The device rows of a profiler's ``key_averages()``: kernels, copies
     and memsets.  The operator rows repeat their kernels' time, and so
@@ -1608,7 +2211,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    phase_device()
+    card = phase_device()
     phase_build()
     kernels = phase_kernels()
     counters = {"segment_max_window": windowed_vals,
@@ -1647,6 +2250,18 @@ def main(argv=None) -> int:
                             ("retrieve", phase_retrieve)):
             t1 = time.perf_counter()
             by_path[name] = phase(counters, on_path, runs)
+            log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        by_path["reproduce"], run = phase_reproduce(counters, on_path, runs)
+        log(f"phase reproduce: {time.perf_counter() - t1:.1f} s")
+        for name, phase in (
+                ("infer", lambda: phase_infer(counters, on_path, run, card,
+                                              runs)),
+                ("mnist", lambda: phase_mnist(counters, on_path, runs, card)),
+                ("serve_http", lambda: phase_serve_http(counters, on_path,
+                                                        run))):
+            t1 = time.perf_counter()
+            by_path[name] = phase()
             log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}

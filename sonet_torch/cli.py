@@ -5,8 +5,13 @@
     sonet-torch partseg    --preset shapenetpart ...            # train
     sonet-torch autoencode --preset autoencoder ...             # train
     sonet-torch retrieve   --preset shrec16 --checkpoint ...    # rank
+    sonet-torch reproduce  --preset modelnet40 --archive ...    # verdict
+    sonet-torch infer      --run <dir> [--mode test]            # predictions
+    sonet-torch serve      --run <dir> --port 8321              # HTTP daemon
+    sonet-torch prep       {sample,som,check,ingest} ...        # data prep
 
-Each command runs ``sonet_torch.tasks.<name>.main(argv)``, so
+Each command runs ``sonet_torch.tasks.<name>.main(argv)`` (``prep``:
+``sonet_torch.data.prep.main``), so
 ``sonet-torch <command> --help`` shows that command's flags; every
 command takes ``--device {cuda,cpu}`` (default ``cuda``).  Modules load
 only when a command runs: listing the commands imports no torch.
@@ -19,7 +24,7 @@ import sys
 # subcommand -> (module path, one-line help)
 _COMMANDS = {
     "classify": ("sonet_torch.tasks.classify",
-                 "train classification (ModelNet40/10, SHREC16)"),
+                 "train classification (ModelNet40/10, SHREC16, MNIST)"),
     "partseg": ("sonet_torch.tasks.partseg",
                 "train part segmentation (ShapeNetPart)"),
     "segment": ("sonet_torch.tasks.partseg", "alias of partseg"),
@@ -27,6 +32,15 @@ _COMMANDS = {
                    "train the point-cloud autoencoder (Chamfer)"),
     "retrieve": ("sonet_torch.tasks.retrieve",
                  "rank SHREC16 retrieval (rank files, mAP/P@k)"),
+    "reproduce": ("sonet_torch.tasks.reproduce",
+                  "archive -> ingest -> som -> check -> train -> gated "
+                  "verdict, one command"),
+    "infer": ("sonet_torch.tasks.infer",
+              "restore a run and stream a split (predictions + metrics)"),
+    "serve": ("sonet_torch.tasks.serve",
+              "HTTP model server (JSON/npz predict API)"),
+    "prep": ("sonet_torch.data.prep",
+             "dataset preparation (sample meshes, fit SOMs, check trees)"),
 }
 
 

@@ -13,14 +13,17 @@ copy of the model in eval mode), as the JAX package's closes over its
 ``params`` and ``batch_stats``: training the caller's module afterwards,
 which switches it to train mode, changes none of the engine's answers.
 ``ServingEngine.from_run`` restores a finished run (its ``config.json``
-and the newest checkpoint under ``ckpt/``).  The request micro-batcher,
-export and serving over a device mesh arrive with later slices.
+and the newest checkpoint under ``ckpt/``).  ``start_microbatch`` turns on
+the request micro-batcher: concurrent requests smaller than the batch
+share one dispatch.  Export and serving over a device mesh arrive with
+later slices.
 """
 
 from __future__ import annotations
 
 import copy
 import os
+import queue
 import threading
 import time
 from typing import Callable, Optional
@@ -119,7 +122,9 @@ class ServingEngine:
         self.requests = 0
         self.items = 0
         self.dispatches = 0
+        self.coalesced = 0
         self.total_s = 0.0
+        self._batcher: Optional[_MicroBatcher] = None
 
     # -- constructors -------------------------------------------------------
 
@@ -218,7 +223,11 @@ class ServingEngine:
             raise ValueError("empty request batch")
 
         t0 = time.perf_counter()
-        out = self._dispatch(arrays, B_req)
+        batcher = self._batcher  # racy vs stop_microbatch: read once
+        if batcher is not None and B_req < self.batch_size:
+            out = batcher.submit(arrays, B_req)
+        else:
+            out = self._dispatch(arrays, B_req)
         with self._stats_lock:
             self.requests += 1
             self.items += B_req
@@ -241,14 +250,36 @@ class ServingEngine:
                 outs.append(np.asarray(self._fn(*chunk))[:n])
         return outs[0] if len(outs) == 1 else np.concatenate(outs, axis=0)
 
+    # -- micro-batching ------------------------------------------------------
+
+    def start_microbatch(self, window_ms: float = 5.0) -> None:
+        """Coalesce CONCURRENT small requests into shared dispatches.
+
+        A request of fewer items than the batch fills a dispatch only
+        partly and still pays its whole cost.  With micro-batching on, such
+        a request parks for up to ``window_ms`` while other requests
+        arrive; parked requests are concatenated into one padded dispatch
+        and each caller gets exactly its own rows back (per-row outputs do
+        not depend on the batch in eval mode).  A single client's latency
+        grows by at most ``window_ms``."""
+        if self._batcher is None:
+            self._batcher = _MicroBatcher(self, window_ms)
+
+    def stop_microbatch(self) -> None:
+        if self._batcher is not None:
+            self._batcher.close()
+            self._batcher = None
+
     def warmup(self) -> None:
         """Run once on zeros so that the first request finds the kernels
         built and loaded; the traffic counters are left as they were."""
         zeros = {i["name"]: np.zeros(i["shape"], i["dtype"])
                  for i in self.manifest["inputs"]}
-        before = (self.requests, self.items, self.dispatches, self.total_s)
+        before = (self.requests, self.items, self.dispatches,
+                  self.coalesced, self.total_s)
         self.predict(zeros)
-        (self.requests, self.items, self.dispatches, self.total_s) = before
+        (self.requests, self.items, self.dispatches, self.coalesced,
+         self.total_s) = before
 
     def stats(self) -> dict:
         return {
@@ -257,6 +288,96 @@ class ServingEngine:
             "requests": self.requests,
             "items": self.items,
             "dispatches": self.dispatches,
+            "coalesced_requests": self.coalesced,
+            "microbatch": self._batcher is not None,
             "avg_ms_per_item": (round(self.total_s / self.items * 1e3, 3)
                                 if self.items else None),
         }
+
+
+class _MicroBatcher:
+    """Request coalescer for :meth:`ServingEngine.start_microbatch`.
+
+    One collector thread: takes the first parked request, keeps
+    gathering until the batch is filled or ``window_ms`` elapses,
+    concatenates, runs ONE ``engine._dispatch`` (which takes the engine's
+    dispatch lock) and hands each caller its own rows.  Errors from the
+    shared dispatch propagate to every participating caller."""
+
+    _CLOSE = object()
+
+    def __init__(self, engine: ServingEngine, window_ms: float):
+        self._engine = engine
+        self._window_s = max(window_ms, 0.0) / 1e3
+        self._q: "queue.Queue" = queue.Queue()
+        self._submit_lock = threading.Lock()
+        self._closed = False
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="sonet-torch-microbatch")
+        self._thread.start()
+
+    def submit(self, arrays: list, n: int) -> np.ndarray:
+        # the lock orders every enqueue before the CLOSE sentinel: a
+        # predict() racing stop_microbatch() either lands in the queue
+        # (the collector drains everything up to CLOSE) or dispatches
+        # directly — it can never park forever behind the sentinel
+        with self._submit_lock:
+            if self._closed:
+                return self._engine._dispatch(arrays, n)
+            slot = {"done": threading.Event()}
+            self._q.put((arrays, n, slot))
+        slot["done"].wait()
+        if "error" in slot:
+            raise slot["error"]
+        return slot["out"]
+
+    def close(self) -> None:
+        with self._submit_lock:
+            if self._closed:
+                return
+            self._closed = True
+            self._q.put(self._CLOSE)
+        self._thread.join(timeout=10)
+
+    def _loop(self) -> None:
+        B = self._engine.batch_size
+        while True:
+            first = self._q.get()
+            if first is self._CLOSE:
+                return
+            group = [first]
+            total = first[1]
+            deadline = time.perf_counter() + self._window_s
+            while total < B:
+                left = deadline - time.perf_counter()
+                if left <= 0:
+                    break
+                try:
+                    nxt = self._q.get(timeout=left)
+                except queue.Empty:
+                    break
+                if nxt is self._CLOSE:
+                    self._finish(group, total)
+                    return
+                group.append(nxt)
+                total += nxt[1]
+            self._finish(group, total)
+
+    def _finish(self, group: list, total: int) -> None:
+        arrays = [np.concatenate([g[0][i] for g in group])
+                  for i in range(len(group[0][0]))]
+        try:
+            out = self._engine._dispatch(arrays, total)
+        except Exception as e:  # propagate to every caller
+            for _, _, slot in group:
+                slot["error"] = e
+                slot["done"].set()
+            return
+        if len(group) > 1:
+            with self._engine._stats_lock:
+                self._engine.coalesced += len(group)
+        ofs = 0
+        for _, n, slot in group:
+            slot["out"] = out[ofs:ofs + n]
+            ofs += n
+            slot["done"].set()

@@ -9,7 +9,6 @@ matplotlib) and the metrics.
 
 from __future__ import annotations
 
-import math
 import os
 import time
 
@@ -18,7 +17,7 @@ import torch
 from .. import retrieval, train
 from ..config import parse_args
 from ..data.pipeline import BatchLoader
-from ..device import resolve_device
+from ..device import refuse_mesh, resolve_device
 from ..train.trainer import build_dataset
 from . import device_parser, pictures
 
@@ -30,10 +29,7 @@ def main(argv=None):
                      help="full train-state checkpoint to load")
     known, rest = pre.parse_known_args(argv)
     cfg = parse_args(rest, preset="shrec16")
-    if math.prod(cfg.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(cfg.mesh_shape)}: the port ranks on one "
-            f"device; meshes are ROADMAP.md §1 item 12")
+    refuse_mesh(cfg.mesh_shape, "ranks")
     dev = resolve_device(known.device)
     gallery = pictures("the retrieval gallery")
 

@@ -23,7 +23,6 @@ and its multi-process runs are not ported yet; asking for them raises
 
 from __future__ import annotations
 
-import math
 import os
 import time
 from typing import Dict, Optional
@@ -33,7 +32,7 @@ import torch
 
 from ..config import Config
 from ..data.pipeline import BatchLoader
-from ..device import resolve_device
+from ..device import refuse_mesh, resolve_device
 from ..utils.logging import MetricLogger
 from . import checkpoints
 from .loops import make_steps
@@ -44,8 +43,8 @@ _EVAL_NAMES = {"loss_i": "loss", "correct_i": "accuracy", "iou_i": "iou"}
 
 def build_dataset(cfg: Config, mode: str, device: str | torch.device = "cuda"):
     """The dataset of ``cfg.dataset`` for ``mode``; ``device`` is where the
-    synthetic dataset fits its SOM nodes (the others read theirs from
-    disk)."""
+    synthetic and the MNIST datasets fit their SOM nodes (the others read
+    theirs from disk)."""
     if cfg.dataset == "synthetic":
         from ..data.synthetic import SyntheticDataset
         mult = 16 if mode == "train" else 4
@@ -64,9 +63,8 @@ def build_dataset(cfg: Config, mode: str, device: str | torch.device = "cuda"):
         from ..data.shapenet import ShapeNetPartDataset
         return ShapeNetPartDataset(cfg.dataroot, mode, cfg)
     if cfg.dataset == "mnist":
-        raise NotImplementedError(
-            "dataset 'mnist': the MNIST loader is not ported yet "
-            "(ROADMAP.md §1 item 11c)")
+        from ..data.mnist import MNISTPointCloudDataset
+        return MNISTPointCloudDataset(cfg.dataroot, mode, cfg, device=device)
     raise ValueError(f"unknown dataset {cfg.dataset!r}")
 
 
@@ -86,10 +84,7 @@ def _refuse_unported(cfg: Config) -> None:
             f"input_pipeline {cfg.input_pipeline!r}: the port runs the host "
             f"pipeline only; the device-resident and native pipelines are "
             f"ROADMAP.md §1 item 11f")
-    if math.prod(cfg.mesh_shape) > 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(cfg.mesh_shape)}: the port trains on one "
-            f"device; meshes are ROADMAP.md §1 item 12")
+    refuse_mesh(cfg.mesh_shape, "trains")
     if cfg.distributed:
         raise NotImplementedError(
             f"distributed {cfg.distributed!r}: multi-process runs are "

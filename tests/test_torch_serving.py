@@ -17,7 +17,7 @@ from sonet_tpu import config as jcfg
 from sonet_tpu import serving as jserving
 from sonet_torch import config as tcfg
 from sonet_torch import serving as tserving
-from sonet_torch.device import resolve_device
+from sonet_torch.device import refuse_mesh, resolve_device
 from sonet_torch.models import build_model
 from sonet_torch.nn.encoder import resolve_pooling
 from sonet_torch.serving import ServingEngine
@@ -141,6 +141,20 @@ class TestDevice:
         with pytest.raises(RuntimeError, match="cuda"):
             ServingEngine.from_model(model, cfg)
 
+    @pytest.mark.parametrize("mesh", [None, "", 0, 1, "1", "1,1", (1, 1)])
+    def test_one_device_mesh_passes(self, mesh):
+        refuse_mesh(mesh, "works")
+
+    @pytest.mark.parametrize("mesh", [2, "2", "4x2", (2, 1), [1, 4]])
+    def test_a_mesh_of_devices_is_refused(self, mesh):
+        with pytest.raises(NotImplementedError, match="works on one device"
+                           ".*item 12"):
+            refuse_mesh(mesh, "works")
+
+    def test_a_mesh_that_is_no_shape_exits(self):
+        with pytest.raises(SystemExit, match="--mesh_shape"):
+            refuse_mesh("2,x,y", "works")
+
     def test_auto_pooling_follows_the_device(self):
         cfg = tcfg.modelnet40()
         assert resolve_pooling(cfg, "cpu") == "scatter"
@@ -210,10 +224,37 @@ class TestImportBoundary:
                 "sonet_torch.train.trainer, sonet_torch.cli, "
                 "sonet_torch.tasks.classify, sonet_torch.tasks.partseg, "
                 "sonet_torch.tasks.autoencode, sonet_torch.tasks.retrieve, "
-                "sonet_torch.utils.logging, sonet_torch.utils.visualize\n"
+                "sonet_torch.utils.logging, sonet_torch.utils.visualize, "
+                "sonet_torch.data.sampler, sonet_torch.data.h5, "
+                "sonet_torch.data.mnist, sonet_torch.data.prep, "
+                "sonet_torch.tasks.infer, sonet_torch.tasks.reproduce, "
+                "sonet_torch.tasks.serve\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
-                "('jax', 'jaxlib', 'flax', 'optax', 'sonet_tpu')]\n"
+                "('jax', 'jaxlib', 'flax', 'optax', 'sonet_tpu', 'h5py')]\n"
                 "print(bad); sys.exit(1 if bad else 0)")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(REPO), os.environ.get("PYTHONPATH", "")]))
+        r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stdout + r.stderr
+
+    def test_sources_name_h5py_only_inside_data_h5s_functions(self):
+        # h5py is optional and absent on the card's machine: the one
+        # module that reads HDF5 imports it inside its functions
+        hits = {}
+        for p in self._sources():
+            for ln in p.read_text().splitlines():
+                if re.match(r"\s*(import|from)\s+h5py\b", ln):
+                    hits.setdefault(p.relative_to(REPO).as_posix(),
+                                    []).append(ln)
+        assert hits == {"sonet_torch/data/h5.py": ["    import h5py"] * 2}
+
+    def test_data_imports_with_h5py_hidden(self):
+        code = ("import sys; sys.modules['h5py'] = None\n"
+                "import sonet_torch.data, sonet_torch.data.h5 as h5, "
+                "sonet_torch.data.prep, sonet_torch.tasks.infer\n"
+                "try:\n    h5.load_h5('x.h5')\nexcept ImportError:\n"
+                "    sys.exit(0)\nsys.exit(1)")
         env = dict(os.environ, PYTHONPATH=os.pathsep.join(
             [str(REPO), os.environ.get("PYTHONPATH", "")]))
         r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -343,10 +343,14 @@ def test_cli_routes_each_command(monkeypatch, capsys):
         mod = importlib.import_module(path)
         monkeypatch.setattr(mod, "main",
                             lambda argv, p=path: seen.append((p, argv)))
-    for cmd in ("classify", "partseg", "segment", "autoencode", "retrieve"):
+    cmds = ("classify", "partseg", "segment", "autoencode", "retrieve",
+            "reproduce", "infer", "serve", "prep")
+    for cmd in cmds:
         assert cli.main([cmd, "--device", "cpu"]) == 0
     assert [p.rsplit(".", 1)[1] for p, _ in seen] == [
-        "classify", "partseg", "partseg", "autoencode", "retrieve"]
+        "classify", "partseg", "partseg", "autoencode", "retrieve",
+        "reproduce", "infer", "serve", "prep"]
+    assert seen[-1][0] == "sonet_torch.data.prep"
     assert all(argv == ["--device", "cpu"] for _, argv in seen)
     assert cli.main(["bogus"]) == 2
     assert cli.main([]) == 0 and "retrieve" in capsys.readouterr().out
@@ -372,7 +376,6 @@ def test_cli_help_imports_no_torch():
     (dict(input_pipeline="native"), "11f"),
     (dict(mesh_shape=(2, 1)), "item 12"),
     (dict(distributed="auto"), "item 12"),
-    (dict(dataset="mnist"), "11c"),
 ])
 def test_unported_options_raise(tmp_path, over, item):
     cfg = _cfg(tmp_path, "no", **over)
