@@ -113,9 +113,31 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    the engine's direct predict, sharing dispatches; B'=1 request times
    with micro-batching on and off; ``drain_server`` with a request in
    flight: /healthz and a new predict answer 503, the request finishes;
-18. a JSON line of every kernel with its launches on each of the twelve
-   paths, error and times;
-19. last line: {"ok": true, "device": {...}}.
+18. trainer_device (run after 14, on its tree of 10,000-point clouds):
+   ``sonet-torch classify --input_pipeline device`` at
+   ``config.modelnet40()``'s width, two epochs, the learning rate and the
+   BatchNorm momentum new each epoch: the split on the card, each step a
+   captured CUDA graph (gather, 5,000-point subsample, augmentation,
+   forward, loss, backward, Adam) replayed once per row of the epoch's
+   table, kernel 1 captured at (8, 15000, 384) only, graph captures and
+   replays counted; then a ``Trainer`` on the run: a captured step equal
+   to the eager one from the same state (``CAPTURED_RTOL``) with epoch 3's
+   learning rate and momentum, two replays drawing anew as eager calls
+   do, ``evaluate()`` twice to the same bits, the run restored into a
+   host-pipeline ``Trainer`` bit for bit; fresh device and host
+   ``Trainer``s timed on the tree in alternating epochs (a step with the
+   loader in; device time and busy share under torch.profiler);
+19. trainer_chunked: the same command for one epoch with a
+   ``--device_budget_gb`` that streams the split in 4 chunks: the resident
+   run's weights after that epoch, bit for bit;
+20. trainer_native: ``sonet-torch classify --input_pipeline native`` on
+   the tree for one epoch and ``sonet-torch infer --input_pipeline
+   native`` on the run (its accuracy equal to the run's
+   ``Trainer.evaluate()``); native and host ``Trainer``s timed in
+   alternating epochs;
+21. a JSON line of every kernel with its launches on each of the fifteen
+   paths (beside kernel 1's graph replays), error and times;
+22. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
 and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
@@ -186,6 +208,23 @@ UNREAD_STAGE = ("decoder.conv_decoder.UpConv_5.",
 SOM_UPDATE_TOL = 1e-5
 SOM_QE_RTOL = 1e-2
 TRAIN_STEPS = 10
+# a captured train step against the eager step from the same weights,
+# batch and generator state, by the relative norm of the difference of
+# their updates over every tensor: the bf16 rule (2%).  The two run the
+# same kernels on the same inputs; a graph that kept another epoch's
+# learning rate or BatchNorm momentum moves the weights by another
+# factor (halved here: 100%) and the running statistics by another
+# momentum (0.06 against 0.036: 67%)
+CAPTURED_RTOL = 2e-2
+# the device pipeline's runs: the "reproduce" tree, lr halved and
+# BatchNorm momentum decayed every epoch, so each epoch's step reads new
+# values, point dropout drawing from the step's generator
+DEVICE_FLAGS = ["--preset", "modelnet40", "--dataset", "modelnet",
+                "--lr_decay_step", "1", "--bn_momentum_decay_step", "1",
+                "--random_pc_dropout_lower_limit", "0.8",
+                "--checkpoint_every", "10"]
+# a budget that streams the 80 train clouds (19.3 MB) in chunks of 24
+CHUNK_BUDGET_GB = "0.012"
 
 
 def log(*a):
@@ -2139,6 +2178,351 @@ def phase_serve_http(kernel_counters, on_path, run):
     return launches
 
 
+class _GraphCounter:
+    """Counts CUDA graph captures and replays, wherever they happen."""
+
+    def __enter__(self):
+        import torch
+        self.cls = torch.cuda.CUDAGraph
+        self.real = self.cls.capture_begin, self.cls.replay
+        self.captures = self.replays = 0
+        begin, replay = self.real
+
+        def counted_begin(graph, *a, **k):
+            self.captures += 1
+            return begin(graph, *a, **k)
+
+        def counted_replay(graph):
+            self.replays += 1
+            return replay(graph)
+        self.cls.capture_begin, self.cls.replay = counted_begin, counted_replay
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.capture_begin, self.cls.replay = self.real
+
+
+def _kernel1_shapes():
+    """(record context, shapes) that counts each call of kernel 1's C
+    function by (B, N, C, M); in a graph a call is its capture."""
+    import contextlib
+    from sonet_torch.ops.cuda import segment_max_window as smw
+    shapes = {}
+
+    @contextlib.contextmanager
+    def record():
+        real = smw._kernel()
+
+        def recording(*args):
+            key = tuple(args[4:8])
+            shapes[key] = shapes.get(key, 0) + 1
+            return real(*args)
+        smw._fn = recording
+        try:
+            yield
+        finally:
+            smw._fn = real
+    return record, shapes
+
+
+def _state_tensors(t):
+    return {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+
+
+def update_rel_diff(before, eager, graph) -> float:
+    """The relative norm, over every float tensor, of the difference
+    between two updates from ``before``: the eager step's and the
+    replay's."""
+    num = den = 0.0
+    for k, b in before.items():
+        if b.is_floating_point():
+            de = (eager[k] - b).double()
+            dg = (graph[k] - b).double()
+            num += float((de - dg).square().sum())
+            den += float(de.square().sum())
+    return (num / den) ** 0.5 if den > 0 else float("inf")
+
+
+def captured_and_eager_step(t):
+    """One train step of the device-pipeline ``Trainer`` ``t`` on the first
+    row of its next epoch's table, eagerly and then as a graph replay, from
+    the same weights, Adam state and generator state.  Returns (eager
+    loss, replayed loss, the relative difference of their updates); ``t``
+    is left after the replay."""
+    import torch
+    epoch = t.state.step // t.steps_per_epoch
+    table, _ = t._device_epoch_index(t.device_train, True, epoch)
+    row = table[:1]
+    before = _state_tensors(t)
+    restore, gen = t._snapshot(), t.generator.get_state()
+    step0 = t.state.step
+    eager_loss = float(t._device_train_step(
+        t.device_train, torch.from_numpy(row[0]).to(t.device))["loss"])
+    eager = _state_tensors(t)
+    restore()
+    t.generator.set_state(gen)
+    loss = float(t.train_graph.run(t.device_train, row)["loss"][0])
+    if t.state.step != step0 + 1:
+        raise AssertionError("a replay did not advance the step")
+    return eager_loss, loss, update_rel_diff(before, eager,
+                                              _state_tensors(t))
+
+
+def _replays_draw_anew(t):
+    """Two replays of the device pipeline's sampling, captured over ``t``'s
+    train split on one row twice, against two eager calls from the same
+    generator state: (the replays differ in points, normals and nodes,
+    the replays equal the eager calls)."""
+    import numpy as np
+    import torch
+    from sonet_torch.data.device_pipeline import sample_batch
+    from sonet_torch.train.graphs import EpochGraph
+    gen = torch.Generator(device="cuda").manual_seed(11)
+
+    def step(data, idx):
+        b = sample_batch(data, idx, gen, t.cfg, train=True)
+        return {k: b[k] for k in ("pc", "sn", "node")}
+
+    table = np.stack([np.arange(t.cfg.batch_size)] * 2)
+    state = gen.get_state()
+    got = EpochGraph(step, t.device, generators=(gen,)).run(t.device_train,
+                                                            table)
+    gen.set_state(state)
+    want = [step(t.device_train, torch.from_numpy(r).cuda()) for r in table]
+    differ = all(not np.array_equal(got[k][0], got[k][1]) for k in got)
+    equal = all(np.array_equal(got[k][i], want[i][k].cpu().numpy())
+                for k in got for i in range(2))
+    return differ, equal
+
+
+def _epoch_readings(runs, tree, pipelines):
+    """Fresh ``Trainer``s on ``tree`` at ``config.modelnet40()``'s width,
+    one a pipeline, with the preset's schedules (no new learning rate or
+    momentum for 20 epochs, so a captured step is captured once): a
+    warm-up epoch each, then epochs in alternating order (A B B A):
+    {pipeline: [ms a step with the loader in, ...]}; then one more epoch
+    of each under torch.profiler: {pipeline: (ms a step by the host clock,
+    device ms a step, busy share)}; and the graph captures and replays of
+    the timed epochs."""
+    from sonet_torch import config
+    from sonet_torch.train.trainer import Trainer
+    flags = ["--preset", "modelnet40", "--dataset", "modelnet",
+             "--random_pc_dropout_lower_limit", "0.8", "--dataroot", tree,
+             "--checkpoints_dir", runs]
+    trainers = {p: Trainer(config.parse_args(flags + [
+        "--input_pipeline", p, "--name", f"epochs_{p}"]), quiet=True,
+        device="cuda", resume=False) for p in pipelines}
+    for t in trainers.values():
+        t.train_epoch(0)
+    epoch = dict.fromkeys(pipelines, 1)
+    steps, busy = {}, {}
+    with _GraphCounter() as graphs:
+        for p in list(pipelines) + list(pipelines)[::-1]:
+            sec = trainers[p].train_epoch(epoch[p])["sec_per_step"]
+            epoch[p] += 1
+            steps.setdefault(p, []).append(round(sec * 1e3, 4))
+        for p, t in trainers.items():
+            S = t.steps_per_epoch
+            wall, dev, _ = _busy_share(lambda: t.train_epoch(epoch[p]))
+            busy[p] = (round(wall * 1e3 / S, 4), round(dev * 1e3 / S, 4),
+                       round(dev / wall, 4))
+    return steps, busy, (graphs.captures, graphs.replays)
+
+
+def phase_trainer_device(kernel_counters, on_path, runs):
+    """``sonet-torch classify --input_pipeline device`` at
+    ``config.modelnet40()``'s width on the "reproduce" tree (80 train and
+    41 test clouds of 10,000 points: the 5,000-point subsample runs on the
+    card), two epochs.  Then a ``Trainer`` on the run, at epoch 3: a
+    captured step equal to an eager one (CAPTURED_RTOL), with epoch 3's
+    learning rate and momentum; two replays drawing anew, as eager calls
+    do; ``evaluate()`` twice to the same bits; the epoch time a step, the
+    device time a step and the busy share beside the host pipeline's, in
+    alternating order; the run restored into a host-pipeline ``Trainer``
+    bit for bit.  Returns (the command's kernel launches, replays)."""
+    import torch
+    from sonet_torch import config
+    from sonet_torch.train.trainer import Trainer
+
+    tree = os.path.join(runs, "reproduce_data", "modelnet40")
+    flags = DEVICE_FLAGS + ["--dataroot", tree, "--checkpoints_dir", runs,
+                            "--input_pipeline", "device"]
+    cfg = config.parse_args(flags + ["--name", "trainer_device"])
+    record, shapes = _kernel1_shapes()
+    _reset(kernel_counters)
+    with _GraphCounter() as graphs, record():
+        took = _cli(["classify", "--device", "cuda", "--epochs", "2",
+                     "--name", "trainer_device"] + flags)
+    launches = _launch_counts(kernel_counters)
+    run = os.path.join(runs, "trainer_device")
+    logged = _logged(run, "test_loss")
+    sec = _logged(run, "train_sec_per_step")["train_sec_per_step"]
+    log(f"{_describe(cfg)}, device pipeline: sonet-torch classify took "
+        f"{took:.3f} s (80 + 41 clouds stacked and copied, 2 epochs, 2 "
+        f"evals); {graphs.captures} captures and {graphs.replays} replays; "
+        f"kernel 1 launches {launches} (warm-ups and captures) by (B, N, C, "
+        f"M) {shapes}; test loss {logged['test_loss']}, accuracy "
+        f"{logged['test_accuracy']}; epoch 2 {sec * 1e3:.4f} ms a step")
+    # train: a capture for epoch 1's key and one for epoch 2's; eval: one
+    if (graphs.captures, graphs.replays) != (3, 2 * 10 + 2 * 6) or (
+            shapes != {(8, 15000, 384, 64): 6}):
+        raise AssertionError("device pipeline: want 3 captures, 32 replays "
+                             "and kernel 1 at (8, 15000, 384, 64) only")
+    for n in on_path:
+        if launches[n] != 6:
+            raise AssertionError(f"{n} launched {launches[n]} times")
+
+    t = Trainer(cfg, quiet=True, device="cuda")
+    if t.state.step != 20 or not all(
+            g["capturable"] for g in t.state.optimizer.param_groups):
+        raise AssertionError("the device Trainer did not resume at step 20 "
+                             "with a capturable Adam")
+    want_key = (tuple(cfg.lr / 2 for _ in t.state.optimizer.param_groups),
+                0.1 * 0.6 ** 2)
+    restore, gen = t._snapshot(), t.generator.get_state()
+    eager, graph, rel = captured_and_eager_step(t)
+    key = t.train_graph.captured_key
+    restore()
+    t.generator.set_state(gen)
+    log(f"epoch 3's first step, eager vs captured from the same state: loss "
+        f"{eager} vs {graph}, updates {rel:.3e} apart (tolerance "
+        f"{CAPTURED_RTOL}); the graph's lr {key[0]}, momenta "
+        f"{sorted(set(key[1]))}")
+    if (abs(eager - graph) > CAPTURED_RTOL * abs(eager)
+            or not rel <= CAPTURED_RTOL or key[0] != want_key[0]
+            or set(key[1]) != {want_key[1]}):
+        raise AssertionError("the captured step is not the eager step of "
+                             "epoch 3")
+    differ, equal = _replays_draw_anew(t)
+    log(f"sampling replayed twice on one row: draws differ {differ}, equal "
+        f"to two eager calls {equal}")
+    if not (differ and equal):
+        raise AssertionError("replays do not draw anew as eager calls do")
+    ev = [t.evaluate() for _ in range(2)]
+    log(f"evaluate() twice: {ev[0]} and {ev[1]}")
+    if ev[0] != ev[1]:
+        raise AssertionError("device eval is not reproducible")
+
+    steps, busy, (captures, replays) = _epoch_readings(
+        runs, tree, ("device", "host"))
+    log(f"epochs of 10 steps on the tree, a step with the loader in, "
+        f"alternating device host host device: device {steps['device']} ms, "
+        f"host {steps['host']} ms; under torch.profiler, (host clock ms, "
+        f"device ms, busy share) a step: device {busy['device']}, host "
+        f"{busy['host']}; the timed device epochs: {captures} captures, "
+        f"{replays} replays")
+    if captures or replays != 3 * 10:
+        raise AssertionError("a timed device epoch captured its step again")
+    t.train_epoch(2)
+    t._save()
+    back = Trainer(cfg.replace(input_pipeline="host"), quiet=True,
+                   device="cuda")
+    bad = _same_tensors(torch, back.model.state_dict(),
+                        t.model.state_dict(), None)
+    sa, sb = t.state.optimizer.state, back.state.optimizer.state
+    for pa, pb in zip(t.model.parameters(), back.model.parameters()):
+        for k, v in sa.get(pa, {}).items():
+            if not torch.equal(v.cpu(), sb[pb][k].cpu()):
+                bad.append(k)
+    log(f"the run restored into a host-pipeline Trainer at step "
+        f"{back.state.step}: tensors differing {bad}")
+    if bad or back.state.step != t.state.step or any(
+            g["capturable"] for g in back.state.optimizer.param_groups):
+        raise AssertionError("the device run does not restore into a host "
+                             "Trainer bit for bit")
+    return launches, graphs.replays
+
+
+def phase_trainer_chunked(kernel_counters, on_path, runs):
+    """The "trainer_device" command for one epoch with a
+    ``--device_budget_gb`` that streams the train split in 4 chunks: its
+    weights after the epoch equal the resident run's (that run's step-10
+    checkpoint) bit for bit.  Returns the kernel launches."""
+    import torch
+    tree = os.path.join(runs, "reproduce_data", "modelnet40")
+    flags = DEVICE_FLAGS + ["--dataroot", tree, "--checkpoints_dir", runs,
+                            "--input_pipeline", "device", "--epochs", "1",
+                            "--device_budget_gb", CHUNK_BUDGET_GB,
+                            "--name", "trainer_chunked"]
+    _reset(kernel_counters)
+    with _GraphCounter() as graphs:
+        rc, out = _cli_output(["classify", "--device", "cuda"] + flags)
+    launches = _launch_counts(kernel_counters)
+    replays = graphs.replays
+    chunked = torch.load(os.path.join(runs, "trainer_chunked", "ckpt",
+                                      "step_00000010.pt"),
+                         map_location="cpu", weights_only=True)
+    resident = torch.load(os.path.join(runs, "trainer_device", "ckpt",
+                                       "step_00000010.pt"),
+                          map_location="cpu", weights_only=True)
+    bad = _same_tensors(torch, chunked["model"], resident["model"], None)
+    streamed = [ln for ln in out.splitlines() if "streaming" in ln]
+    log(f"chunked: {streamed}; {graphs.captures} captures, {graphs.replays} "
+        f"replays, kernel launches {launches}; weights after the epoch "
+        f"against the resident run's: differing {bad}")
+    if (rc != 0 or not any("4 chunks of 24" in ln for ln in streamed)
+            or (graphs.captures, graphs.replays) != (2, 16) or bad):
+        raise AssertionError("chunked: want 4 chunks, 2 captures, 16 replays "
+                             "and the resident run's weights")
+    for n in on_path:
+        if launches[n] != 4:
+            raise AssertionError(f"{n} launched {launches[n]} times")
+    return launches, replays
+
+
+def phase_trainer_native(kernel_counters, on_path, runs):
+    """``sonet-torch classify --input_pipeline native`` on the "reproduce"
+    tree for one epoch, then epochs of its ``Trainer`` beside a host
+    pipeline's in alternating order (a step with the loader in, the busy
+    share), and ``sonet-torch infer --input_pipeline native`` on the run:
+    41 rows, its accuracy equal to the run's ``Trainer.evaluate()`` over
+    the same items.  Returns the kernel launches of the two commands."""
+    import csv
+    from sonet_torch import config
+    from sonet_torch.data.native_loader import NativeModelNetDataset
+    from sonet_torch.train.trainer import Trainer
+
+    tree = os.path.join(runs, "reproduce_data", "modelnet40")
+    flags = DEVICE_FLAGS + ["--dataroot", tree, "--checkpoints_dir", runs,
+                            "--input_pipeline", "native",
+                            "--name", "trainer_native"]
+    cfg = config.parse_args(flags)
+    run = os.path.join(runs, "trainer_native")
+    _reset(kernel_counters)
+    took = _cli(["classify", "--device", "cuda", "--epochs", "1"] + flags)
+    out_dir = os.path.join(run, "infer")
+    rc, out = _cli_output(["infer", "--run", run, "--device", "cuda",
+                           "--input_pipeline", "native", "--out", out_dir])
+    launches = _launch_counts(kernel_counters)
+    summary = json.loads(out.strip().splitlines()[-1])
+    with open(os.path.join(out_dir, "predictions.csv")) as f:
+        rows = list(csv.reader(f))
+    log(f"native pipeline: sonet-torch classify took {took:.3f} s (one "
+        f"epoch, its eval); infer {summary}, {len(rows) - 1} rows; kernel "
+        f"launches {launches}")
+    if rc != 0 or summary["items"] != 41 or len(rows) != 42:
+        raise AssertionError("native infer: bad summary or rows")
+    for n in on_path:
+        if launches[n] != 10 + 6 + 6:
+            raise AssertionError(f"{n} launched {launches[n]} times")
+    t = Trainer(cfg, quiet=True, device="cuda")
+    if not isinstance(t.test_set, NativeModelNetDataset):
+        raise AssertionError("native: the Trainer reads with another loader")
+    t.test_loader.skip_epoch()
+    ev = t.evaluate()
+    log(f"Trainer.evaluate() on the run: {ev}")
+    if ev["accuracy"] != summary["accuracy"] or abs(
+            ev["loss"] - summary["loss"]) > 1e-6 * max(1.0, ev["loss"]):
+        raise AssertionError("native infer disagrees with the run's Trainer")
+    steps, busy, _ = _epoch_readings(runs, tree, ("native", "host"))
+    log(f"epochs of 10 steps on the tree, a step with the loader in, "
+        f"alternating native host host native: native {steps['native']} ms, "
+        f"host {steps['host']} ms; under torch.profiler, (host clock ms, "
+        f"device ms, busy share) a step: native {busy['native']}, host "
+        f"{busy['host']}")
+    return launches
+
+
 def _get(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=60) as r:
@@ -2254,6 +2638,18 @@ def main(argv=None) -> int:
         t1 = time.perf_counter()
         by_path["reproduce"], run = phase_reproduce(counters, on_path, runs)
         log(f"phase reproduce: {time.perf_counter() - t1:.1f} s")
+        # the device pipeline's graphs replay kernel 1 without a launch
+        # from the host: their replays stand beside the launches
+        replays = {}
+        for name, phase in (("trainer_device", phase_trainer_device),
+                            ("trainer_chunked", phase_trainer_chunked)):
+            t1 = time.perf_counter()
+            by_path[name], replays[name] = phase(counters, on_path, runs)
+            log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        by_path["trainer_native"] = phase_trainer_native(counters, on_path,
+                                                         runs)
+        log(f"phase trainer_native: {time.perf_counter() - t1:.1f} s")
         for name, phase in (
                 ("infer", lambda: phase_infer(counters, on_path, run, card,
                                               runs)),
@@ -2266,6 +2662,8 @@ def main(argv=None) -> int:
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
+        k["graph_replays_by_path"] = (
+            replays if k["name"] in on_path else dict.fromkeys(replays, 0))
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

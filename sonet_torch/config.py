@@ -80,10 +80,11 @@ class Config:
     # "scatter" on the CPU (nn/encoder.py:resolve_pooling)
     pooling: str = "auto"  # auto | scatter | sorted_window
     # the fields below keep config.json files interchangeable with the
-    # JAX package.  The port runs the host pipeline on one device: its
-    # Trainer refuses another input_pipeline, a mesh and a distributed
-    # run by name (they arrive with later slices), and does not read
-    # device_budget_gb, dataset_placement or remat
+    # JAX package.  The port runs on one device: its Trainer takes every
+    # input_pipeline (device_budget_gb bounds the device pipeline's split;
+    # dataset_placement "sharded" needs a mesh and is read as replicated),
+    # refuses a mesh and a distributed run by name (they arrive with a
+    # later slice), and does not read remat
     input_pipeline: str = "host"  # host | native | device
     device_budget_gb: float = 0.0
     dataset_placement: str = "replicated"  # replicated | sharded

@@ -149,3 +149,11 @@ class MNISTPointCloudDataset(EpochSeeded):
         return {"pc": pc.astype(np.float32),
                 "node": node.astype(np.float32),
                 "label": self.labels[idx]}
+
+    def raw_item(self, idx: int) -> Dict[str, np.ndarray]:
+        """The item without augmentation, for the device-resident
+        pipeline (the points are already at input_pc_num, so the device
+        draws no subsample)."""
+        return {"pc": self.points[idx].astype(np.float32),
+                "node": self.som_node[idx].astype(np.float32),
+                "label": self.labels[idx]}

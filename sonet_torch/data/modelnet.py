@@ -113,6 +113,16 @@ class ModelNetDataset(EpochSeeded):
                 "node": node.astype(np.float32),
                 "label": np.int64(label)}
 
+    def raw_item(self, idx: int) -> Dict[str, np.ndarray]:
+        """The item at full resolution, without subsample or augmentation,
+        for the device-resident pipeline (``data/device_pipeline.py``)."""
+        pc_path, label, som_path = self.items[idx]
+        data = np.load(pc_path)
+        return {"pc": np.ascontiguousarray(data[:, 0:3], np.float32),
+                "sn": np.ascontiguousarray(data[:, 3:6], np.float32),
+                "node": np.load(som_path).astype(np.float32),
+                "label": np.int64(label)}
+
 
 class ShrecDataset(EpochSeeded):
     """SHREC2016 npz layout; returns the shape id for retrieval
@@ -149,3 +159,15 @@ class ShrecDataset(EpochSeeded):
         except ValueError:
             item["id"] = np.int64(idx)
         return item
+
+    def raw_item(self, idx: int) -> Dict[str, np.ndarray]:
+        """The item at full resolution, without subsample or augmentation,
+        for the device-resident pipeline (the subsample to input_pc_num
+        happens on the device).  The retrieval ``id`` is not carried:
+        retrieval reads the host loader."""
+        npz_path, label, _name = self.items[idx]
+        data = np.load(npz_path)
+        return {"pc": data["pc"].astype(np.float32),
+                "sn": data["sn"].astype(np.float32),
+                "node": data["som_node"].astype(np.float32),
+                "label": np.int64(label)}

@@ -169,6 +169,11 @@ class BatchLoader:
                 pass
 
     def _make(self, indices, valid) -> Dict[str, np.ndarray]:
+        # a dataset may assemble a whole batch itself (the native C++
+        # loader, data/native_loader.py, runs its threads inside the call)
+        mk = getattr(self.dataset, "make_batch", None)
+        if mk is not None:
+            return mk(indices, valid)
         batch = collate([self.dataset[int(i)] for i in indices])
         batch["valid"] = np.asarray(valid, np.int32)
         return batch

@@ -70,6 +70,34 @@ class ShapeNetPartDataset(EpochSeeded):
         path = os.path.join(self.root, f"{file}_{rows}x{rows}.npz")
         return path, FOLDERS.index(file[0:8])
 
+    def raw_item(self, idx: int) -> Dict[str, np.ndarray]:
+        """The item without augmentation, at a fixed size, for the
+        device-resident pipeline.
+
+        A shape is resampled to ``2 * input_pc_num`` raw points (seeded by
+        the item) so that the split stacks into one array; the subsample
+        to ``input_pc_num`` happens on the device.  A shape that already
+        has that many points is loaded as it is."""
+        cfg = self.cfg
+        path, label = self.item_path_label(idx)
+        data = np.load(path)
+        pc, sn = data["pc"], data["sn"]
+        seg = data["part_label"]
+        node = data["som_node"]
+        R = 2 * cfg.input_pc_num
+        n = pc.shape[0]
+        if n != R:
+            r = np.random.default_rng(cfg.seed * 100_003 + idx)
+            if n > R:
+                choice = r.choice(n, R, replace=False)
+            else:
+                choice = np.concatenate(
+                    [np.arange(n), r.choice(n, R - n, replace=True)])
+            pc, sn, seg = pc[choice], sn[choice], seg[choice]
+        return {"pc": pc.astype(np.float32), "sn": sn.astype(np.float32),
+                "node": node.astype(np.float32),
+                "label": np.int64(label), "seg": seg.astype(np.int64)}
+
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         cfg = self.cfg
         rng = self.item_rng(idx)

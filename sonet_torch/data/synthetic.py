@@ -118,3 +118,13 @@ class SyntheticDataset(EpochSeeded):
         if cfg.task == "segment":
             item["seg"] = self.seg[idx]
         return item
+
+    def raw_item(self, idx: int) -> Dict[str, np.ndarray]:
+        """The item without augmentation, for the device-resident
+        pipeline (``data/device_pipeline.py``)."""
+        item = {"pc": self.pc[idx], "sn": self.sn[idx],
+                "node": self.som_node[idx],
+                "label": self.label[idx].astype(np.int64)}
+        if self.cfg.task == "segment":
+            item["seg"] = self.seg[idx]
+        return item

@@ -47,19 +47,13 @@ _HEADER = {"classify": ["index", "label", "pred", "correct"],
            "autoencode": ["index", "chamfer", "chamfer_fwd", "chamfer_bwd"]}
 
 
-def _pipeline(args, cfg) -> None:
-    """Refuse the input pipelines the port does not have: a flag asking
-    for one, or a run written with the native one.  A run written with the
-    device-resident pipeline streams through the host one, as in the JAX
+def _pipeline(args, cfg) -> str:
+    """The input pipeline that streams the split: the flag's, else the
+    run's.  ``native`` assembles batches in C++ threads; ``device``, a
+    training construct, streams through the host pipeline, as in the JAX
     package (inference streams a batch at a time)."""
     pipeline = args.input_pipeline or cfg.input_pipeline
-    if pipeline == "device" and not args.input_pipeline:
-        pipeline = "host"
-    if pipeline != "host":
-        raise NotImplementedError(
-            f"input_pipeline {pipeline!r}: the port streams through the host "
-            f"pipeline only; the native and device pipelines are ROADMAP.md "
-            f"§1 item 11f")
+    return "host" if pipeline == "device" else pipeline
 
 
 def main(argv=None):
@@ -82,8 +76,8 @@ def main(argv=None):
                          "is not ported yet)")
     ap.add_argument("--input_pipeline", default=None,
                     choices=["host", "native", "device"],
-                    help="batch assembly (default: the run's setting; the "
-                         "port has 'host' only)")
+                    help="batch assembly (default: the run's setting; "
+                         "'device' streams through 'host')")
     ap.add_argument("--scan_chunk", type=int, default=16,
                     help="eval steps issued before their metrics are "
                          "fetched (one host sync per chunk); 1 = fetch "
@@ -101,9 +95,8 @@ def main(argv=None):
         cfg = cfg.replace(batch_size=args.batch_size)
     if args.dataroot:
         cfg = cfg.replace(dataroot=args.dataroot)
-    _pipeline(args, cfg)
     refuse_mesh(args.mesh_shape, "infers")
-    cfg = cfg.replace(input_pipeline="host", mesh_shape=(1, 1))
+    cfg = cfg.replace(input_pipeline=_pipeline(args, cfg), mesh_shape=(1, 1))
     dev = resolve_device(args.device)
     out_dir = args.out or os.path.join(args.run, "infer")
     os.makedirs(out_dir, exist_ok=True)

@@ -1,6 +1,7 @@
 """Training (port of the JAX package's ``train``): losses, the train
 state with per-subnetwork Adam and the halving schedule, the classify,
-segment and autoencode train and eval steps, checkpoints, and the
+segment and autoencode train and eval steps, checkpoints, steps captured
+as CUDA graphs and replayed over an epoch (``graphs``), and the
 epoch-loop ``Trainer`` over a dataset."""
 
 from . import losses

@@ -12,10 +12,14 @@ The per-subnetwork split of the model tree (``encoder.`` / head
 prefixes) is what ``restore_encoder`` uses for the encoder-only transfer
 between tasks (the ``pretrain`` path).
 
-Restoring copies into the live state's tensors, so everything lands on
-the state's device: parameters, running statistics and Adam's moments
-beside their parameters, Adam's step counters where the live optimizer
-keeps them (host tensors, unless it is capturable or fused).
+A checkpoint does not depend on the input pipeline that wrote it: the
+optimizer is saved as an eager Adam saves it (step counters on the host,
+not capturable), also from a capturable Adam (the device pipeline's, whose
+steps run in CUDA graphs).  Restoring copies into the live state's
+tensors, so everything lands on the state's device: parameters, running
+statistics and Adam's moments beside their parameters, Adam's step
+counters where the live optimizer keeps them (on the host, unless it is
+capturable), and the live optimizer stays capturable or not.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from .state import TrainState
+from .state import TrainState, set_capturable
 
 _NAME = re.compile(r"^step_(\d{8,})\.pt$")
 _TMP = ".tmp-"
@@ -44,13 +48,26 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
     os.makedirs(root, exist_ok=True)
     path = os.path.join(root, f"step_{step:08d}.pt")
     payload = {"model": state.model.state_dict(),
-               "optimizer": state.optimizer.state_dict(),
+               "optimizer": _eager_optimizer_state(state.optimizer),
                "step": int(state.step)}
     tmp = f"{path}{_TMP}{os.getpid()}"
     torch.save(payload, tmp)
     os.replace(tmp, path)
     _gc(root, keep)
     return path
+
+
+def _eager_optimizer_state(optimizer) -> dict:
+    """``optimizer.state_dict()`` as an eager Adam writes it: step counters
+    on the host, ``capturable`` off (new dicts; the live state is not
+    touched)."""
+    sd = optimizer.state_dict()
+    for group in sd["param_groups"]:
+        group["capturable"] = False
+    sd["state"] = {i: {k: (v.cpu() if k == "step" else v)
+                       for k, v in st.items()}
+                   for i, st in sd["state"].items()}
+    return sd
 
 
 def _finalized_steps(root: str) -> list:
@@ -90,8 +107,11 @@ def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     The checkpoint must be of the same model: keys and shapes are checked
     strictly."""
     ckpt = _load(path)
+    capturable = any(g.get("capturable", False)
+                     for g in state.optimizer.param_groups)
     state.model.load_state_dict(ckpt["model"], strict=True)
     state.optimizer.load_state_dict(ckpt["optimizer"])
+    set_capturable(state.optimizer, capturable)
     state.step = int(ckpt["step"])
     return state
 

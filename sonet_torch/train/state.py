@@ -79,6 +79,20 @@ class TrainState:
         self.step += 1
 
 
+def set_capturable(optimizer: torch.optim.Optimizer, flag: bool) -> None:
+    """Make ``optimizer`` (an Adam) capturable in a CUDA graph or not, in
+    place: a capturable Adam keeps its step counters on the parameters'
+    device and computes its bias correction there, an eager one keeps them
+    on the host.  The counters' values are kept."""
+    for group in optimizer.param_groups:
+        group["capturable"] = flag
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and "step" in st:
+                st["step"] = st["step"].to(
+                    device=p.device if flag else "cpu", dtype=torch.float32)
+
+
 def init_state(cfg: Config, device: str | torch.device = "cuda",
                seed: int | None = None, steps_per_epoch: int = 100,
                model: nn.Module | None = None) -> TrainState:

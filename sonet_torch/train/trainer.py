@@ -1,5 +1,5 @@
 """The epoch-loop trainer shared by every task (port of the JAX package's
-``train/trainer.py``), on one device with the host input pipeline.
+``train/trainer.py``), on one device.
 
 Kept from the JAX package, and through it from the reference's four
 train scripts (modelnet/train.py, shrec16/train.py, part-seg/train.py,
@@ -13,18 +13,27 @@ autoencoder/train.py):
 * the encoder-only ``pretrain`` restore (modelnet/train.py:33-34);
 * auto-resume from the newest checkpoint of the run, and a graceful stop
   on SIGTERM/SIGINT that checkpoints first;
-* host batches read and augmented on the loader's threads, ahead of the
-  step that reads them, and copied to the device asynchronously.
+* three input pipelines (``cfg.input_pipeline``): ``host`` reads and
+  augments batches on the loader's threads, ahead of the step that reads
+  them, and copies them to the device asynchronously; ``native`` does the
+  same in C++ threads (``data/native_loader.py``, the ModelNet, SHREC and
+  ShapeNetPart layouts); ``device`` keeps the raw split on the device
+  (``data/device_pipeline.py``; chunked above ``device_budget_gb``) and
+  samples and augments inside the step, which on a card is a captured
+  CUDA graph replayed once per row of the epoch's index table
+  (``train/graphs.py``), its metrics fetched once an epoch.  Device epochs
+  stop at the epoch boundary, host epochs after the step.
 
-The JAX package's device-resident and native input pipelines, its mesh
-and its multi-process runs are not ported yet; asking for them raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+The JAX package's mesh and its multi-process runs are not ported yet;
+asking for them raises ``NotImplementedError`` naming the ``ROADMAP.md``
+item that brings them.
 """
 
 from __future__ import annotations
 
 import os
 import time
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -35,8 +44,9 @@ from ..data.pipeline import BatchLoader
 from ..device import refuse_mesh, resolve_device
 from ..utils.logging import MetricLogger
 from . import checkpoints
+from .graphs import EpochGraph
 from .loops import make_steps
-from .state import init_state
+from .state import init_state, set_capturable
 
 _EVAL_NAMES = {"loss_i": "loss", "correct_i": "accuracy", "iou_i": "iou"}
 
@@ -44,7 +54,15 @@ _EVAL_NAMES = {"loss_i": "loss", "correct_i": "accuracy", "iou_i": "iou"}
 def build_dataset(cfg: Config, mode: str, device: str | torch.device = "cuda"):
     """The dataset of ``cfg.dataset`` for ``mode``; ``device`` is where the
     synthetic and the MNIST datasets fit their SOM nodes (the others read
-    theirs from disk)."""
+    theirs from disk).  With ``input_pipeline="native"`` the ModelNet,
+    SHREC and ShapeNetPart layouts get their C++ loaders (whose build
+    raises when it fails); other datasets warn and use the Python one."""
+    native = cfg.input_pipeline == "native"
+    if native and cfg.dataset not in ("modelnet", "shrec", "shapenet"):
+        warnings.warn(
+            f"--input_pipeline native supports the modelnet/shrec/"
+            f"shapenet prepared layouts; dataset {cfg.dataset!r} falls "
+            f"back to the python host pipeline")
     if cfg.dataset == "synthetic":
         from ..data.synthetic import SyntheticDataset
         mult = 16 if mode == "train" else 4
@@ -54,12 +72,21 @@ def build_dataset(cfg: Config, mode: str, device: str | torch.device = "cuda"):
                                                         else 8)),
                                 mode=mode, seed=cfg.seed, device=device)
     if cfg.dataset == "modelnet":
+        if native:
+            from ..data.native_loader import NativeModelNetDataset
+            return NativeModelNetDataset(cfg.dataroot, mode, cfg)
         from ..data.modelnet import ModelNetDataset
         return ModelNetDataset(cfg.dataroot, mode, cfg)
     if cfg.dataset == "shrec":
+        if native:
+            from ..data.native_loader import NativeShrecDataset
+            return NativeShrecDataset(cfg.dataroot, mode, cfg)
         from ..data.modelnet import ShrecDataset
         return ShrecDataset(cfg.dataroot, mode, cfg)
     if cfg.dataset == "shapenet":
+        if native:
+            from ..data.native_loader import NativeShapeNetPartDataset
+            return NativeShapeNetPartDataset(cfg.dataroot, mode, cfg)
         from ..data.shapenet import ShapeNetPartDataset
         return ShapeNetPartDataset(cfg.dataroot, mode, cfg)
     if cfg.dataset == "mnist":
@@ -79,11 +106,9 @@ def _metric_key(cfg: Config) -> tuple[str, bool]:
 
 
 def _refuse_unported(cfg: Config) -> None:
-    if cfg.input_pipeline != "host":
-        raise NotImplementedError(
-            f"input_pipeline {cfg.input_pipeline!r}: the port runs the host "
-            f"pipeline only; the device-resident and native pipelines are "
-            f"ROADMAP.md §1 item 11f")
+    if cfg.input_pipeline not in ("host", "native", "device"):
+        raise ValueError(f"input_pipeline {cfg.input_pipeline!r}: want "
+                         f"'host', 'native' or 'device'")
     refuse_mesh(cfg.mesh_shape, "trains")
     if cfg.distributed:
         raise NotImplementedError(
@@ -136,12 +161,166 @@ class Trainer:
             print(f"resumed from {latest} at step {self.state.step}")
         self.train_step, self.eval_step = make_steps(cfg,
                                                      self.steps_per_epoch)
-        # the random draws of the steps (point dropout, dropout masks):
-        # the counterpart of the JAX package's PRNGKey(seed + 1)
+        # the random draws of the steps (point dropout, dropout masks, the
+        # device pipeline's sampling): the counterpart of the JAX
+        # package's PRNGKey(seed + 1)
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
+        self.device_train = self.device_eval = None
+        if cfg.input_pipeline == "device":
+            self._init_device_pipeline()
+        # a captured step needs Adam's step counters on the card
+        set_capturable(self.state.optimizer,
+                       self.device_train is not None
+                       and self.device.type == "cuda")
         self.best_metric = None
         self._stop_requested = False
+
+    # -- the device-resident pipeline ----------------------------------
+    def _init_device_pipeline(self) -> None:
+        """Stack both splits' raw items and put them on the device, or
+        stream a split above ``device_budget_gb`` in chunks; set up the
+        train and eval steps over them (captured on a card)."""
+        from ..data.device_pipeline import (ChunkedDeviceData,
+                                            device_data_from_host,
+                                            split_nbytes, stack_host_split)
+        cfg = self.cfg
+        if cfg.dataset_placement not in ("replicated", "sharded"):
+            raise ValueError(
+                f"--dataset_placement {cfg.dataset_placement!r}: want "
+                f"'replicated' or 'sharded'")
+        if cfg.dataset_placement == "sharded":
+            print("device pipeline: --dataset_placement sharded needs a "
+                  "mesh (--mesh_shape); using replicated placement on the "
+                  "single device", flush=True)
+        budget = int(cfg.device_budget_gb * 1e9)
+
+        def build(dataset, what):
+            host = stack_host_split(dataset)
+            nbytes = split_nbytes(host)
+            if budget > 0 and nbytes > budget:
+                cd = ChunkedDeviceData(host, budget, cfg.batch_size,
+                                       self.device, seed=cfg.seed)
+                print(f"device pipeline [{what}]: split {nbytes / 1e9:.2f} "
+                      f"GB exceeds --device_budget_gb "
+                      f"{cfg.device_budget_gb:g}: streaming "
+                      f"{cd.num_chunks} chunks of {cd.chunk_items} items "
+                      f"(double-buffered)", flush=True)
+                return cd
+            return device_data_from_host(host, self.device)
+
+        self.device_train = build(self.train_set, "train")
+        self.device_eval = build(self.test_set, "eval")
+        # eval draws (the subsample) restart from one seed every evaluate,
+        # so the same split evaluates to the same bits
+        self.eval_generator = torch.Generator(device=self.device)
+        self._keys: Dict[int, tuple] = {}
+        self.train_graph = EpochGraph(
+            self._device_train_step, self.device,
+            generators=(self.generator,), key=self._step_key,
+            snapshot=self._snapshot, on_replay=self._advance)
+        self.eval_graph = EpochGraph(
+            self._device_eval_step, self.device,
+            generators=(self.eval_generator,))
+
+    def _device_train_step(self, data, idx):
+        from ..data.device_pipeline import sample_batch
+        batch = sample_batch(data, idx, self.generator, self.cfg, train=True)
+        _, metrics = self.train_step(self.state, batch, self.generator)
+        return metrics
+
+    def _device_eval_step(self, data, idx):
+        from ..data.device_pipeline import sample_batch
+        batch = sample_batch(data, idx, self.eval_generator, self.cfg,
+                             train=False)
+        m = self.eval_step(self.state, batch)
+        # per-item columns and scalars only: what evaluate() reads
+        return {k: v for k, v in m.items()
+                if k.endswith("_i") or v.dim() == 0}
+
+    def _step_key(self) -> tuple:
+        """What a captured train step reads from Python: each group's
+        learning rate and every BatchNorm's momentum, both constant within
+        an epoch."""
+        epoch = self.state.step // self.steps_per_epoch
+        key = self._keys.get(epoch)
+        if key is None:
+            st = self.state
+            lrs = tuple(st.schedules[g["name"]](st.step)
+                        for g in st.optimizer.param_groups)
+            momenta = tuple(m.momentum_at(epoch) for m in self.model.modules()
+                            if hasattr(m, "momentum_at"))
+            key = self._keys[epoch] = (lrs, momenta)
+        return key
+
+    def _advance(self) -> None:
+        self.state.step += 1
+
+    def _snapshot(self):
+        """A function that puts back what a train step changes: weights,
+        running statistics, Adam's state (a state first made by the step
+        goes back to zeros, which is what a fresh Adam starts from), the
+        step and the learning rates."""
+        st = self.state
+        live = [*self.model.parameters(), *self.model.buffers()]
+        saved = [t.detach().clone() for t in live]
+        opt = {p: {k: v.clone() for k, v in s.items()}
+               for p, s in st.optimizer.state.items()}
+        step = st.step
+        lrs = [g["lr"] for g in st.optimizer.param_groups]
+
+        def restore():
+            with torch.no_grad():
+                for t, s in zip(live, saved):
+                    t.copy_(s)
+                for p, s in st.optimizer.state.items():
+                    for k, v in s.items():
+                        if p in opt:
+                            v.copy_(opt[p][k])
+                        else:
+                            v.zero_()
+            st.step = step
+            for g, lr in zip(st.optimizer.param_groups, lrs):
+                g["lr"] = lr
+
+        return restore
+
+    def _device_epoch_index(self, data, shuffle: bool, epoch: int):
+        """((S, B) int64 index table, each row's valid count) for one
+        epoch over a resident split: the JAX package's tables for the same
+        seed and epoch (a shuffle by ``default_rng(seed + 1000 + epoch)``
+        cut to whole batches; in order, the last row padded by repeating
+        its last item, without)."""
+        T, B = data.size, self.cfg.batch_size
+        order = np.arange(T)
+        if shuffle:
+            order = np.random.default_rng(
+                self.cfg.seed + 1000 + epoch).permutation(T)
+            order = order[: (T // B) * B]  # drop last, like the train loader
+        valids, rows = [], []
+        for i in range(0, len(order), B):
+            chunk = order[i:i + B]
+            valids.append(len(chunk))
+            if len(chunk) < B:  # pad by repeating the last item
+                chunk = np.concatenate([chunk,
+                                        np.full(B - len(chunk), chunk[-1])])
+            rows.append(chunk)
+        if not rows:
+            return None, []
+        return np.stack(rows).astype(np.int64), valids
+
+    def _device_splits(self, data, shuffle: bool, epoch: int,
+                       drop_last: bool):
+        """``(DeviceData, table, valids)`` for each part of an epoch: one
+        for a resident split, one a chunk for a chunked one."""
+        from ..data.device_pipeline import ChunkedDeviceData
+        if isinstance(data, ChunkedDeviceData):
+            yield from data.epoch_chunks(shuffle, epoch, self.cfg.batch_size,
+                                         drop_last)
+            return
+        table, valids = self._device_epoch_index(data, shuffle, epoch)
+        if table is not None:
+            yield data, table, valids
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
@@ -171,9 +350,11 @@ class Trainer:
             yield self._device_batch(batch), valid
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
-        """One pass over the training loader; the last step's metrics and
+        """One pass over the training split; the last step's metrics and
         ``sec_per_step``, the epoch's wall time (the loader in) over its
         steps, read after the last step's metrics reached the host."""
+        if self.device_train is not None:
+            return self._train_epoch_device(epoch)
         t0 = time.perf_counter()
         metrics = None
         steps = 0
@@ -193,15 +374,50 @@ class Trainer:
         last["sec_per_step"] = (time.perf_counter() - t0) / steps
         return last
 
+    def _train_epoch_device(self, epoch: int) -> Dict[str, float]:
+        """The device pipeline's epoch: the train step replayed once per row
+        of the epoch's table (each chunk's, for a chunked split), the
+        stacked metrics fetched once a part, logged every ``log_every``
+        steps."""
+        t0 = time.perf_counter()
+        parts = [self.train_graph.run(dd, table) for dd, table, _ in
+                 self._device_splits(self.device_train, True, epoch, True)]
+        if not parts:  # dataset smaller than one batch
+            return {"sec_per_step": 0.0}
+        ms = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        steps = len(next(iter(ms.values())))
+        for i in range(0, steps, self.log_every):
+            self.logger.log(self.state.step - steps + i + 1,
+                            {k: float(v[i]) for k, v in ms.items()},
+                            epoch=epoch, prefix="train_")
+        last = {k: float(v[-1]) for k, v in ms.items()}
+        last["sec_per_step"] = (time.perf_counter() - t0) / steps
+        return last
+
+    def _eval_batches(self):
+        """``(device batch or None, metrics, valid)`` per eval batch: the
+        host loader's batches through ``eval_step``, or the device
+        pipeline's rows, whose metrics arrive stacked, once a part."""
+        if self.device_eval is None:
+            for db, valid in self._device_batches(self.test_loader):
+                yield db, self.eval_step(self.state, db), valid
+            return
+        self.eval_generator.manual_seed(self.cfg.seed)
+        for dd, table, valids in self._device_splits(self.device_eval,
+                                                     False, 0, False):
+            ms = self.eval_graph.run(dd, table)
+            for i, valid in enumerate(valids):
+                yield None, {k: torch.as_tensor(v[i])
+                             for k, v in ms.items()}, valid
+
     def evaluate(self, visualize: bool = False) -> Dict[str, float]:
         """Eval over the test split (``val`` for SHREC), each per-item
         metric averaged over the valid items (modelnet/train.py:78-90)."""
         sums: Dict[str, float] = {}
         count = 0
         first = True
-        for db, valid in self._device_batches(self.test_loader):
-            m = self.eval_step(self.state, db)
-            if visualize and first:
+        for db, m, valid in self._eval_batches():
+            if visualize and first and db is not None:
                 self._save_visuals(db, m)
                 first = False
             count += valid
@@ -266,7 +482,8 @@ class Trainer:
         return self._save() if improved and gate else None
 
     def request_stop(self) -> None:
-        """Ask ``fit`` to stop after the current step: it evaluates and
+        """Ask ``fit`` to stop after the current step (the current epoch with
+        the device pipeline, whose epochs are replayed whole): it evaluates and
         checkpoints the full train state first, so a new Trainer on the
         same run resumes exactly there (the reference loses everything on
         SIGTERM: its saves are metric-gated only, modelnet/train.py:96-103)."""

@@ -604,3 +604,122 @@ def test_trainer_on_card(cuda_device, tmp_path):
     scores, labels, ids = retrieval.extract_scores(
         t.eval_step, t.state, t.test_loader, t._device_batch)
     assert scores.shape == (16, cfg.classes) and np.isfinite(scores).all()
+
+
+# ---------------------------------------------------------------------------
+# the device-resident pipeline's captured steps
+# ---------------------------------------------------------------------------
+
+def _device_trainer(tmp_path, device, name, **over):
+    from sonet_torch.train.trainer import Trainer
+    cfg = config.tiny_test().replace(
+        checkpoints_dir=str(tmp_path), name=name, input_pipeline="device",
+        random_pc_dropout_lower_limit=0.8, **over)
+    return Trainer(cfg, quiet=True, resume=False, device=device)
+
+
+def test_captured_train_step_equals_eager(cuda_device, tmp_path):
+    """Float32 here: the replay runs the eager step's kernels on the same
+    inputs, so loss and update agree to float32 rounding."""
+    t = _device_trainer(tmp_path, cuda_device, "cap")
+    assert all(g["capturable"] for g in t.state.optimizer.param_groups)
+    captures = t.train_graph.captures
+    eager, graph, rel = chip_smoke.captured_and_eager_step(t)
+    assert t.train_graph.captures == captures + 1
+    assert graph == pytest.approx(eager, rel=1e-5, abs=1e-6)
+    assert rel < 1e-3
+
+
+def test_captured_step_follows_the_epoch(cuda_device, tmp_path):
+    """lr halves and the BatchNorm momentum decays every epoch here: a graph
+    that kept an earlier epoch's values would move the weights by twice
+    the eager step's update and the running statistics by another
+    momentum."""
+    t = _device_trainer(tmp_path, cuda_device, "epochs", lr_decay_step=1,
+                        bn_momentum_decay_step=1)
+    for epoch in range(2):
+        t.train_epoch(epoch)
+    assert t.train_graph.captures == 2       # epoch 0's key and epoch 1's
+    eager, graph, rel = chip_smoke.captured_and_eager_step(t)
+    keys = [t._keys[e] for e in range(3)]
+    assert t.train_graph.captured_key == keys[2] != keys[1] != keys[0]
+    assert keys[2][0] == tuple(t.cfg.lr / 2 for _ in keys[2][0])
+    assert all(m == pytest.approx(0.1 * 0.6 ** 2) for m in keys[2][1])
+    assert graph == pytest.approx(eager, rel=1e-5, abs=1e-6)
+    assert rel < 1e-3
+
+
+def test_captured_replays_draw_anew_as_eager_steps_do(cuda_device):
+    """Two replays of a captured sampling step on the same rows draw other
+    subsamples and augmentations, and the same ones as two eager calls
+    from the same generator state."""
+    from sonet_torch.data import device_pipeline as dp
+    from sonet_torch.train.graphs import EpochGraph
+    cfg = config.tiny_test().replace(input_pc_num=64, rot_horizontal=True,
+                                     rot_perturbation=True,
+                                     translation_perturbation=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    data = dp.DeviceData(
+        pc=torch.randn((6, 200, 3), generator=g).to(cuda_device),
+        sn=torch.randn((6, 200, 3), generator=g).to(cuda_device),
+        node=torch.randn((6, cfg.node_num, 3), generator=g).to(cuda_device),
+        label=torch.arange(6).to(cuda_device))
+
+    def step(d, idx):
+        b = dp.sample_batch(d, idx, gen, cfg, train=True)
+        return {"pc": b["pc"], "node": b["node"], "sn": b["sn"]}
+
+    table = np.array([[0, 1, 2, 3]] * 2)
+    state = gen.get_state()
+    graph = EpochGraph(step, cuda_device, generators=(gen,))
+    got = graph.run(data, table)
+    assert graph.captures == 1 and graph.replays == 2
+    gen.set_state(state)
+    want = [step(data, torch.from_numpy(r).to(cuda_device)) for r in table]
+    for k in got:
+        assert not np.array_equal(got[k][0], got[k][1]), k
+        for i in range(2):
+            np.testing.assert_array_equal(got[k][i], want[i][k].cpu().numpy())
+
+
+def test_device_pipeline_trainer_on_card(cuda_device, tmp_path):
+    """A device-pipeline run: kernel 1 launched only by warm-ups and
+    captures, the epoch replayed; eval twice to the same bits; the run
+    restored bit for bit into a host-pipeline Trainer, and a host run into
+    a device-pipeline one; chunked training equal to resident bit for
+    bit."""
+    from sonet_torch.train.trainer import Trainer
+    t = _device_trainer(tmp_path, cuda_device, "dev")
+    before = smw.windowed_vals.launches
+    metrics = t.fit(epochs=1)
+    # a warm-up and a capture of the train step and of the eval step
+    assert smw.windowed_vals.launches - before == 4
+    assert (t.train_graph.replays, t.eval_graph.replays) == (16, 4)
+    assert t.state.step == 16 and np.isfinite(metrics["loss"])
+    assert t.evaluate() == t.evaluate() == metrics
+    t._save()
+    host = Trainer(t.cfg.replace(input_pipeline="host"), quiet=True,
+                   device=cuda_device)
+    assert host.state.step == 16
+    assert not any(g["capturable"] for g in host.state.optimizer.param_groups)
+    a, b = t.model.state_dict(), host.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    sa, sb = t.state.optimizer.state, host.state.optimizer.state
+    for pa, pb in zip(t.model.parameters(), host.model.parameters()):
+        assert set(sa.get(pa, {})) == set(sb.get(pb, {}))
+        for k, v in sa.get(pa, {}).items():
+            assert torch.equal(v.cpu(), sb[pb][k].cpu()), k
+    host.fit(epochs=1)
+    back = Trainer(t.cfg, quiet=True, device=cuda_device)
+    assert back.state.step == 32
+    a, b = host.model.state_dict(), back.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    chunked = _device_trainer(tmp_path, cuda_device, "chunked",
+                              device_budget_gb=2e-6)
+    assert chunked.device_train.num_chunks >= 3
+    resident = _device_trainer(tmp_path, cuda_device, "resident")
+    for tr in (chunked, resident):
+        tr.train_epoch(0)
+    a, b = chunked.model.state_dict(), resident.model.state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)

@@ -17,6 +17,7 @@ the Chamfer columns within 1e-5 relative.
 import csv
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -192,11 +193,15 @@ def test_infer_matches_jax(runs, tmp_path):
     check_infer_matches_jax(runs, tmp_path)
 
 
-def check_infer_matches_jax(runs, tmp_path):
+def check_infer_matches_jax(runs, tmp_path, pipeline="host"):
+    """``sonet-torch infer`` against ``sonet infer`` with
+    ``--input_pipeline pipeline`` on both sides."""
     task, jrun, trun, tc = runs
-    want = jinfer.main(["--run", str(jrun), "--out", str(tmp_path / "j")])
+    flags = ["--input_pipeline", pipeline]
+    want = jinfer.main(["--run", str(jrun), "--out", str(tmp_path / "j")]
+                       + flags)
     got = tinfer.main(["--run", str(trun), "--out", str(tmp_path / "t"),
-                       "--device", "cpu"])
+                       "--device", "cpu"] + flags)
     jh, jrows, jsum = _rows(tmp_path / "j")
     th, trows, tsum = _rows(tmp_path / "t")
     assert got == tsum and want == jsum
@@ -212,7 +217,7 @@ def check_infer_matches_jax(runs, tmp_path):
         if k not in ("items", "checkpoint", "clouds_per_sec"):
             assert abs(tsum[k] - v) <= TOL * max(1.0, abs(v)), (k, tsum, jsum)
     if task == "classify":
-        margins = _port_margins(trun, tc)
+        margins = _port_margins(trun, tc.replace(input_pipeline=pipeline))
         assert sum(m > MARGIN for m in margins) >= n - 1
         for t, j, m in zip(trows, jrows, margins):
             assert t[:2] == j[:2]
@@ -254,14 +259,46 @@ def check_scan_chunk(runs, tmp_path):
 @pytest.mark.parametrize("flags,item", [
     (["--mesh_shape", "2"], "item 12"),
     (["--mesh_shape", "4,2"], "item 12"),
-    (["--input_pipeline", "native"], "11f"),
-    (["--input_pipeline", "device"], "11f"),
 ])
 def test_unported_flags_raise(runs, tmp_path, flags, item):
     _, _, trun, _ = runs
     with pytest.raises(NotImplementedError, match=item):
         tinfer.main(["--run", str(trun), "--out", str(tmp_path),
                      "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("source", ["flag", "run"])
+def test_device_pipeline_streams_through_the_host_one(runs, tmp_path,
+                                                      source):
+    """``--input_pipeline device``, or a run trained with it, gives the host
+    pipeline's rows and summary, as ``sonet infer`` does."""
+    _, _, trun, tc = runs
+    run, flags = trun, ["--input_pipeline", "device"]
+    if source == "run":
+        run, flags = tmp_path / "device_run", []
+        shutil.copytree(trun, run)
+        tc.replace(name="device_run", input_pipeline="device").save(
+            str(run / "config.json"))
+    out = {}
+    for name, extra in (("host", ["--input_pipeline", "host"]),
+                        ("device", flags)):
+        s = tinfer.main(["--run", str(run), "--out", str(tmp_path / name),
+                         "--device", "cpu"] + extra)
+        s.pop("clouds_per_sec")
+        out[name] = _rows(tmp_path / name)[:2], s
+    assert out["device"] == out["host"]
+
+
+def test_native_pipeline_matches_jax(runs, tmp_path, monkeypatch):
+    """``--input_pipeline native`` on both sides: the two packages' native
+    batches are byte-equal (``tests/test_torch_native_loader.py``).  The
+    JAX package's library is built into this test's own directory: it
+    would build beside its sources with no lock, where another worker's
+    ``tests/test_native_loader.py`` may be building it."""
+    from sonet_tpu import native as jnative
+    monkeypatch.setattr(jnative, "_LIB", str(tmp_path / "libjax.so"))
+    monkeypatch.setattr(jnative, "_lib", None)
+    check_infer_matches_jax(runs, tmp_path, pipeline="native")
 
 
 def test_infer_defaults_to_cuda(runs, tmp_path, monkeypatch):

@@ -213,6 +213,16 @@ class TestImportBoundary:
                          re.M)
         hits = [str(p) for p in self._sources() if pat.search(p.read_text())]
         assert not hits
+        # the C++ sources the port builds are its own copies, under its
+        # own tree, and include nothing of the JAX package
+        native = sorted((REPO / "sonet_torch" / "native").glob("*.cpp"))
+        assert [p.name for p in native] == ["loader.cpp", "segment_max.cpp"]
+        inc = re.compile(r'^\s*#\s*include\s*[<"]([^>"]+)', re.M)
+        for p in native:
+            assert all("sonet" not in h for h in inc.findall(p.read_text()))
+        from sonet_torch import native as tnative
+        assert all(s.parent == REPO / "sonet_torch" / "native"
+                   for s in tnative.SOURCES)
 
     def test_package_import_loads_no_jax(self):
         code = ("import sys, sonet_torch, sonet_torch.serving, "
@@ -228,7 +238,9 @@ class TestImportBoundary:
                 "sonet_torch.data.sampler, sonet_torch.data.h5, "
                 "sonet_torch.data.mnist, sonet_torch.data.prep, "
                 "sonet_torch.tasks.infer, sonet_torch.tasks.reproduce, "
-                "sonet_torch.tasks.serve\n"
+                "sonet_torch.tasks.serve, sonet_torch.data.device_pipeline, "
+                "sonet_torch.data.native_loader, sonet_torch.native, "
+                "sonet_torch.train.graphs\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'flax', 'optax', 'sonet_tpu', 'h5py')]\n"
                 "print(bad); sys.exit(1 if bad else 0)")

@@ -372,8 +372,6 @@ def test_cli_help_imports_no_torch():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("over,item", [
-    (dict(input_pipeline="device"), "11f"),
-    (dict(input_pipeline="native"), "11f"),
     (dict(mesh_shape=(2, 1)), "item 12"),
     (dict(distributed="auto"), "item 12"),
 ])
@@ -381,6 +379,35 @@ def test_unported_options_raise(tmp_path, over, item):
     cfg = _cfg(tmp_path, "no", **over)
     with pytest.raises(NotImplementedError, match=item):
         Trainer(cfg, quiet=True, device="cpu")
+
+
+@pytest.mark.parametrize("command,pipeline", [
+    ("classify", "device"), ("classify", "native"),
+    ("partseg", "device"), ("autoencode", "device"),
+])
+def test_commands_take_every_input_pipeline(tmp_path, command, pipeline):
+    """The task commands train with the device and native pipelines (the
+    synthetic dataset has no native loader: it warns and reads with the
+    Python one), and an unknown pipeline is refused."""
+    from sonet_torch.tasks import autoencode as tautoencode
+    mains = {"classify": tclassify.main, "partseg": tpartseg.main,
+             "autoencode": tautoencode.main}
+    argv = ["--device", "cpu", "--preset", "tiny_test", "--epochs", "1",
+            "--checkpoints_dir", str(tmp_path), "--name", "run",
+            "--input_pipeline", pipeline]
+    if command != "classify":
+        argv += ["--feature_num", "64"]
+    if pipeline == "native":
+        with pytest.warns(UserWarning, match="falls back"):
+            final = mains[command](argv)
+    else:
+        final = mains[command](argv)
+    assert np.isfinite(final["loss"])
+    assert load_config(str(tmp_path / "run" / "config.json")
+                       ).input_pipeline == pipeline
+    with pytest.raises(ValueError, match="input_pipeline"):
+        Trainer(_cfg(tmp_path, "bad", input_pipeline="disk"), quiet=True,
+                device="cpu")
 
 
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
