@@ -19,17 +19,24 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    fill and its main kernel apart, and timed on the float32 and the B=64
    inputs, at the part segmenter's shape (8, 3072, 384) and at the MNIST
    classifier's (8, 1536, 384) with M=25 (ids from a real top-k
-   assignment of fabricated digits to nodes fitted on the card); each of its
+   assignment of fabricated digits to nodes fitted on the card), and at
+   the bucketed artifact's (B, 15000, 384) for B = 1, 2, 4 (each equal to
+   those rows of the B=8 call); each of its
    cases must take the kernel (bulk or direct) that its shape and
    alignment name.  Kernel 2 (``segment_argmax``) is on no
    path of the model and is held here only, also against kernel 1's
    values;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
    width, seeded random weights) served through ``ServingEngine`` on the
-   card for requests of 1, 8 and 13 clouds, with every kernel's launch
-   count read from 0; logits checked for shape and finiteness and held
-   against the same weights with scatter pooling; a small float32 model
-   held against the same model on the CPU; the B=8 forward timed;
+   card, its forward a captured CUDA graph: the warm-up captures it
+   (kernel 1 at (8, 15000, 384), M=64, in the warm-up step and the
+   capture, every launch count read from 0 before it), then requests of
+   1, 8 and 13 clouds replay it once a chunk of 8 and launch nothing;
+   logits checked for shape and finiteness, held against the eager
+   ``build_serve_fn`` on the same inputs and against the same weights with
+   scatter pooling; a small float32 model held against the same model on
+   the CPU; the B=8 forward timed eager and replayed, in turns, by events
+   and by device time;
 5. training: ``train.init_state`` and ``train.make_steps`` on the same
    configuration; the first PointNet's gradients, from a float32
    train-mode forward and from bf16 and float32 forwards with the running
@@ -74,18 +81,24 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    at ``config.modelnet40()``'s width on the synthetic dataset (320 train
    and 160 test clouds, nodes fitted on the card), point dropout from 0.8
    drawing from a CUDA generator, ``checkpoint_every=20``: one epoch with
-   every kernel's launch count read from 0, ``config.json`` and a
-   checkpoint written, the epoch's time a step with the loader in; then a
-   ``train.Trainer`` on that run: it resumes at the run's step, its eval
-   by hand over the 160 valid items equals the run's, the card's busy
-   share over an epoch under torch.profiler, ``request_stop`` and a
-   ``fit`` that checkpoints, a new ``Trainer`` that resumes at that step
-   bit for bit, ``ServingEngine.from_run`` against ``Trainer.eval_step``;
+   every kernel's launch count read from 0, its train and eval steps
+   captured graphs (2 captures, kernel 1 at (8, 15000, 384) only, a replay
+   a step and an eval batch), ``config.json`` and a checkpoint written,
+   the epoch's time a step with the loader in; then a ``train.Trainer`` on
+   that run: it resumes at the run's step, its eval by hand over the 160
+   valid items equals the run's, the card's busy share over an epoch
+   under torch.profiler, ``request_stop`` and a ``fit`` that checkpoints,
+   a new ``Trainer`` that resumes at that step bit for bit,
+   ``ServingEngine.from_run`` against ``Trainer.eval_step``, a captured
+   host-pipeline train step against the eager one from the same state,
+   batch and generator (``CAPTURED_RTOL``), ``evaluate()`` twice to the
+   same bits;
 13. retrieve: ``config.shrec16()`` at full width (som_k=0, 55 classes): a
    SHREC tree of 110 / 55 / 55 shapes of 6000 points written with nodes
    fitted on the card; ``sonet-torch classify`` for one epoch, evaluated
    on ``val`` (its loss equal to one by hand), and ``sonet-torch
-   retrieve`` from its checkpoint, kernel launches read from 0 over both;
+   retrieve`` from its checkpoint, kernel launches and graph replays read
+   from 0 over both (3 captured steps, a replay a batch);
    its 55 rank files, named by the split's ids, byte-equal to the same
    checkpoint's test scores (``retrieval.extract_scores``) ranked by
    ``rank_all`` on the card, and that ranking held against the CPU's; a
@@ -95,22 +108,26 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``sonet-torch prep sample --points 10000 --normalize`` and packed as a
    ModelNet40 ``.tar.gz``; ``sonet-torch reproduce --preset modelnet40
    --epochs 1`` ingests it, fits its nodes on the card (``prep som``),
-   checks the tree, trains one epoch at B=8, N=5000 and prints the
+   checks the tree, trains one epoch at B=8, N=5000 (captured steps, a
+   replay a batch) and prints the
    verdict: below the 0.918 gate, rc 1; the same command again reuses the
    tree and the run and gives the same ``best``; ``prep som``'s fit of 64
    clouds of 4096 points timed;
-15. infer: ``sonet-torch infer`` on that run's test split (40 items, the
-   last batch padded): 40 rows, its accuracy equal to the run's own
-   ``Trainer.evaluate()`` over the same items; clouds/s;
+15. infer: ``sonet-torch infer`` on that run's test split (41 items, the
+   last batch padded): 41 rows from 6 replays of the captured eval step,
+   its accuracy equal to the run's own ``Trainer.evaluate()`` over the
+   same items; clouds/s; the eval step alone eager and replayed;
 16. mnist: a fabricated ``mnist.npz`` (2,048 train and 512 test digits),
    ``sonet-torch classify --preset mnist --epochs 1`` (nodes fitted on the
-   card) and ``sonet-torch infer``: finite metrics, every launch of kernel
-   1 at (8, 1536, 384) with M=25, the nodes' quantization error within 1%
-   of a CPU fit's; a train step timed;
+   card) and ``sonet-torch infer``: finite metrics, 3 captured steps
+   replayed once a batch, every call of kernel 1 at (8, 1536, 384) with
+   M=25, the nodes' quantization error within 1% of a CPU fit's; a train
+   step timed eager and replayed;
 17. serve_http: the reproduce run through ``ServingEngine.from_run`` with
    ``start_microbatch(5)`` behind ``tasks.serve.make_server`` on
    127.0.0.1: 16 concurrent B'=1 requests, each within the bf16 rule of
-   the engine's direct predict, sharing dispatches; B'=1 request times
+   the engine's direct predict, sharing dispatches, a replay each
+   (the micro-batcher's thread only replays); B'=1 request times
    with micro-batching on and off; ``drain_server`` with a request in
    flight: /healthz and a new predict answer 503, the request finishes;
 18. trainer_device (run after 14, on its tree of 10,000-point clouds):
@@ -124,7 +141,7 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    to the eager one from the same state (``CAPTURED_RTOL``) with epoch 3's
    learning rate and momentum, two replays drawing anew as eager calls
    do, ``evaluate()`` twice to the same bits, the run restored into a
-   host-pipeline ``Trainer`` bit for bit; fresh device and host
+   host-pipeline ``Trainer`` (captured too) bit for bit; fresh device and host
    ``Trainer``s timed on the tree in alternating epochs (a step with the
    loader in; device time and busy share under torch.profiler);
 19. trainer_chunked: the same command for one epoch with a
@@ -133,11 +150,25 @@ Phases; any failure ends the run with a non-zero exit and no result line:
 20. trainer_native: ``sonet-torch classify --input_pipeline native`` on
    the tree for one epoch and ``sonet-torch infer --input_pipeline
    native`` on the run (its accuracy equal to the run's
-   ``Trainer.evaluate()``); native and host ``Trainer``s timed in
-   alternating epochs;
-21. a JSON line of every kernel with its launches on each of the fifteen
-   paths (beside kernel 1's graph replays), error and times;
-22. last line: {"ok": true, "device": {...}}.
+   ``Trainer.evaluate()``), 3 captured steps replayed once a batch; the
+   run restored into a device-pipeline ``Trainer`` bit for bit; native
+   and host ``Trainer``s timed in alternating epochs;
+21. export: the reproduce run exported by ``sonet-torch export --check``
+   as a ``cuda`` artifact (kernel 1 kept as the operator
+   ``sonet_torch::windowed_vals``), a bucketed ``--poly_batch`` one and a
+   portable symbolic one (``--platforms cpu,cuda``); each served by
+   ``ServingEngine.from_artifact`` (a captured graph a program's batch,
+   kernel 1 at (B, 15000, 384) for B = 1, 2, 4, 8) on 41 clouds at
+   B' = 1, 3, 8 and 41 within the bf16 rule of ``from_run`` (of a scatter
+   ``from_run`` for the portable one); a process that cannot import
+   ``sonet_torch`` loads the portable ``model.pt2`` and answers as its
+   engine; ``make_server`` on the artifact answers 16 concurrent B'=1
+   requests and ``sonet-torch serve --artifact``, as a process, one;
+   bytes and export times;
+22. kernel 1's calls by shape over every phase after 3, and a JSON line
+   of every kernel with its launches on each of the sixteen paths beside
+   its graph replays there, error and times;
+23. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
 and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
@@ -151,6 +182,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -616,6 +648,16 @@ def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
     t_b64 = _time_kernel1(torch, data64, ids64, M)
     t_seg = _time_kernel1(torch, cases[3][1], ids_seg, M)
     t_mnist = _time_kernel1(torch, cases[4][1], ids_mnist, 25)
+    # the bucketed artifact's smaller programs give kernel 1 the flagship
+    # rows of 1, 2 and 4 clouds: equal to those rows of the B=8 call
+    whole = windowed_vals(data, ids, M)
+    t_buckets = {}
+    for b in (1, 2, 4):
+        part = windowed_vals(data[:b], ids[:b], M)
+        if not bool((part == whole[:b]).all()):
+            raise AssertionError(f"segment_max_window at B={b} differs from "
+                                 f"the B=8 call's rows")
+        t_buckets[b] = _time_kernel1(torch, data[:b], ids[:b], M)
     host_us = host_us_per_call(lambda: windowed_vals(data, ids, M))
     base = torch.empty((B, M, C), dtype=data.dtype, device=dev)
     idx = ids.long()[..., None].expand(B, kN, C).contiguous()
@@ -646,7 +688,12 @@ def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
             "mnist_ms": t_mnist["event_ms"],
             "mnist_graph_ms": t_mnist["graph_ms"],
             "mnist_main_device_ms": t_mnist["main_ms"],
-            "mnist_bound_ms": t_mnist["bound_ms"]}
+            "mnist_bound_ms": t_mnist["bound_ms"],
+            "bucket_graph_ms": {b: t["graph_ms"] for b, t in t_buckets.items()},
+            "bucket_main_device_ms": {b: t["main_ms"]
+                                      for b, t in t_buckets.items()},
+            "bucket_bound_ms": {b: t["bound_ms"]
+                                for b, t in t_buckets.items()}}
 
 
 def _check_segment_argmax(torch, gen, ids, M):
@@ -822,43 +869,78 @@ def _describe(cfg):
 
 def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
     """Serve ``cfg``'s model (the ModelNet40 classifier, the ShapeNetPart
-    part segmenter or the Chamfer autoencoder) on the card; returns the
-    launches of every kernel
-    during the served requests.  Each kernel named in ``on_path`` must
-    launch for every request.  ``small`` is the float32 configuration
-    held against the CPU."""
+    part segmenter or the Chamfer autoencoder) on the card through the
+    captured engine; returns (the launches of every kernel from the
+    engine's warm-up on, the graph replays of the served requests).  The
+    warm-up captures the forward (kernel 1 launched by its warm-up step
+    and its capture, at the main path's shape); every request replays
+    the graph once a chunk of B, and the captured forward is held against
+    the eager ``build_serve_fn`` on the same inputs.  ``small`` is the
+    float32 configuration held against the CPU."""
     import numpy as np
     import torch
     from sonet_torch.models import build_model
-    from sonet_torch.serving import ServingEngine
+    from sonet_torch.serving import ServingEngine, build_serve_fn
 
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device="cuda", seed=0)
     engine = ServingEngine.from_model(model, cfg, device="cuda")
     names = engine.input_names
+    B = engine.batch_size
     log(f"serving {_describe(cfg)}, inputs {names}, "
         f"pooling={engine.manifest['pooling']}")
-    engine.warmup()
+    record, shapes = _kernel1_shapes()
+    _reset(kernel_counters)
+    with record():
+        engine.warmup()
     clouds = _clouds(np, 13, cfg, seed=1)
     inputs = {n: clouds[n] for n in names}
+    # every task's forward pools the k * N stacked points of 384 channels
+    # onto its M nodes: (8, 15000, 384, 64) for the classifier, (8, 3072,
+    # 384, 64) for the segmenter and the autoencoder; kernel 1 is called
+    # by the warm-up step and by the capture, and by nothing else
+    want_shape = {(B, cfg.k * cfg.input_pc_num, 384, cfg.node_num): 2}
+    warm = _launch_counts(kernel_counters)
+    log(f"warm-up: {engine.graph.captures} capture, kernel 1 by (B, N, C, "
+        f"M) {shapes}, launches {warm}")
+    if (engine.graph.captures != 1 or shapes != want_shape
+            or any(warm[n] != 2 for n in on_path)):
+        raise AssertionError(f"the warm-up did not capture kernel 1 in the "
+                             f"forward at {want_shape}: {shapes}, {warm}")
 
-    _reset(kernel_counters)
     outputs = {}
+    replays = 0
     for b in (1, 8, 13):
         before = {n: c.launches for n, c in kernel_counters.items()}
+        r0 = engine.graph.replays
         out = engine.predict({n: a[:b] for n, a in inputs.items()})
         torch.cuda.synchronize()
         grew = {n: c.launches - before[n] for n, c in kernel_counters.items()}
+        replayed = engine.graph.replays - r0
+        replays += replayed
         log(f"request B'={b}: scores {out.shape}, finite "
-            f"{bool(np.isfinite(out).all())}, kernel launches {grew}")
+            f"{bool(np.isfinite(out).all())}, graph replays {replayed}, "
+            f"kernel launches {grew}")
         if out.shape != _score_shape(cfg, b) or not np.isfinite(out).all():
             raise AssertionError(f"bad scores for B'={b}: {out.shape}")
-        if not all(grew[n] > 0 for n in on_path):
-            raise AssertionError(f"a kernel was not launched for B'={b}: "
-                                 f"{grew}")
+        if replayed != -(-b // B) or any(grew.values()):
+            raise AssertionError(f"B'={b}: want {-(-b // B)} replays and no "
+                                 f"launch, got {replayed} and {grew}")
         outputs[b] = out
     launches = _launch_counts(kernel_counters)
-    log(f"served: {engine.stats()}; launches {launches}")
+    log(f"served: {engine.stats()}; launches {launches}, replays {replays}")
+
+    # the captured forward against the eager one on the same inputs
+    serve = build_serve_fn(model, cfg)       # eval mode, as built
+    dev_in = [torch.from_numpy(inputs[n][:8]).cuda() for n in names]
+    eager = serve(*dev_in).float().cpu().numpy()
+    diff = float(np.abs(eager - outputs[8]).max())
+    scale = max(1.0, float(np.abs(eager).max()))
+    log(f"captured vs eager forward: max abs diff {diff} (bit-equal "
+        f"{bool(np.array_equal(eager, outputs[8]))}; tolerance {LOGIT_RTOL} "
+        f"x {scale})")
+    if diff > LOGIT_RTOL * scale:
+        raise AssertionError("the captured forward disagrees with the eager")
 
     # items are independent in eval mode: the 13-item request chunks to
     # 8 + 5 (padded) and must repeat the 1- and 8-item answers
@@ -872,7 +954,6 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
     # un-permutes nothing
     scatter = build_model(cfg.replace(pooling="scatter"), device="cuda")
     scatter.load_state_dict(model.state_dict())
-    dev_in = [torch.from_numpy(inputs[n][:8]).cuda() for n in names]
     with torch.inference_mode():
         ref = _served(cfg, scatter(*dev_in))
     ref = ref.float().cpu().numpy()
@@ -902,18 +983,34 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
         with torch.inference_mode():
             model(*dev_in)
 
-    fwd_ms = time_ms(forward, reps=20)
+    def replay():
+        engine.graph(*dev_in)
+
     req8 = {n: a[:8] for n, a in inputs.items()}
-    t = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        engine.predict(req8)
-        t.append((time.perf_counter() - t0) * 1e3)
-    req_ms = statistics.median(t)
-    log(f"{cfg.task} B=8 forward on the card: {fwd_ms:.4f} ms "
-        f"({8 / fwd_ms * 1e3:.1f} clouds/s); B'=8 request through "
-        f"ServingEngine (host arrays in and out): {req_ms:.4f} ms "
-        f"({8 / req_ms * 1e3:.1f} clouds/s); peak memory "
+
+    def request():
+        t = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            engine.predict(req8)
+            t.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(t)
+
+    # eager and captured in turns: eager, captured, captured, eager
+    fwd_ms, rep_ms = [time_ms(forward, reps=20)], [time_ms(replay, reps=20)]
+    rep_ms.append(time_ms(replay, reps=20))
+    fwd_ms.append(time_ms(forward, reps=20))
+    req_ms = request()
+    _, dev_fwd, rows_fwd = _busy_share(lambda: [forward() for _ in range(5)])
+    _, dev_rep, rows_rep = _busy_share(lambda: [replay() for _ in range(5)])
+    log(f"{cfg.task} B=8 forward on the card by events, eager then captured "
+        f"in turns: eager {fwd_ms} ms, captured (a copy of the inputs and "
+        f"one replay) {rep_ms} ms; device time under torch.profiler a "
+        f"call: eager {dev_fwd * 1e3 / 5:.4f} ms in {rows_fwd // 5} device "
+        f"rows, captured {dev_rep * 1e3 / 5:.4f} ms in {rows_rep // 5} "
+        f"rows; B'=8 request through ServingEngine (host arrays in and "
+        f"out, one replay): {req_ms:.4f} ms ({8 / req_ms * 1e3:.1f} "
+        f"clouds/s); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
 
     if profile_dir:
@@ -927,7 +1024,7 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
                     model.decoder(feature)
 
             profile_run(decode, profile_dir, "forward_decoder")
-    return launches
+    return launches, replays
 
 
 def _no_gradient(model, cfg):
@@ -1076,11 +1173,35 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
 
     torch.cuda.reset_peak_memory_stats()
     step_ms = time_ms(step, reps=20)
-    log(f"{cfg.task} B=8 train step on the card: {step_ms:.4f} ms "
-        f"({B / step_ms * 1e3:.1f} clouds/s); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 20:.0f} MiB")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    wall, busy, rows = _busy_share(lambda: [step() for _ in range(5)])
     if profile_dir:
         profile_run(step, profile_dir, f"train_step_{cfg.task}")
+    # the same step captured, as the Trainer runs it on a card (Adam
+    # capturable while the graph lives; the checkpoint is written eager)
+    from sonet_torch.train.graphs import StepGraph
+    from sonet_torch.train.state import set_capturable
+    set_capturable(state.optimizer, True)
+    names = tuple(batches[0])
+    graph = StepGraph(
+        lambda *t: train_step(state, dict(zip(names, t)), gen)[1], dev,
+        generators=(gen,))
+
+    def replay():
+        graph(*batches[0].values())
+
+    replay_ms = time_ms(replay, reps=20)
+    rwall, rbusy, rrows = _busy_share(lambda: [replay() for _ in range(5)])
+    graph.reset()
+    del graph
+    set_capturable(state.optimizer, False)
+    log(f"{cfg.task} B=8 train step on the card by events: eager "
+        f"{step_ms:.4f} ms ({B / step_ms * 1e3:.1f} clouds/s), captured "
+        f"{replay_ms:.4f} ms ({B / replay_ms * 1e3:.1f} clouds/s); under "
+        f"torch.profiler a step: eager {busy * 1e3 / 5:.4f} ms of device "
+        f"time in {rows // 5} rows, busy {busy / wall:.1%}; captured "
+        f"{rbusy * 1e3 / 5:.4f} ms in {rrows // 5} rows, busy "
+        f"{rbusy / rwall:.1%}; peak memory {peak:.0f} MiB")
     ckpt = train.save_checkpoint(ckpt_dir, state, state.step)
     log(f"checkpoint of step {state.step}: {os.path.basename(ckpt)}, "
         f"{os.path.getsize(ckpt) / 2 ** 20:.1f} MiB")
@@ -1401,10 +1522,13 @@ def phase_trainer(kernel_counters, on_path, runs):
     ``config.modelnet40()``'s width, on the synthetic dataset (nodes fitted
     on the card), with point dropout drawing from a CUDA generator: one
     epoch, its eval over every test item, a periodic checkpoint, the epoch
-    time with the loader in.  Then a ``Trainer`` on that run: the resume,
-    the eval by hand, the card's busy share over an epoch, a graceful stop
-    and a resume bit for bit, ``ServingEngine.from_run``.  Returns the
-    launches of every kernel in the command's run."""
+    time with the loader in, each train step and eval batch one replay of
+    a captured graph.  Then a ``Trainer`` on that run: the resume, the
+    eval by hand, the card's busy share over an epoch, a graceful stop and
+    a resume bit for bit, ``ServingEngine.from_run``, a captured train
+    step against the eager one from the same state, batch and generator
+    (``CAPTURED_RTOL``), ``evaluate()`` twice to the same bits.  Returns
+    (the launches of every kernel in the command's run, its replays)."""
     import numpy as np
     import torch
     from sonet_torch import config, train
@@ -1419,8 +1543,10 @@ def phase_trainer(kernel_counters, on_path, runs):
     cfg = config.parse_args(flags)
     B = cfg.batch_size
     run = os.path.join(runs, "trainer")
+    record, shapes = _kernel1_shapes()
     _reset(kernel_counters)
-    cli_s = _cli(["classify", "--device", "cuda"] + flags)
+    with _GraphCounter() as graphs, record():
+        cli_s = _cli(["classify", "--device", "cuda"] + flags)
     launches = _launch_counts(kernel_counters)
     summary = _logged(run, "train_sec_per_step")
     logged = _logged(run, "test_loss")
@@ -1431,7 +1557,9 @@ def phase_trainer(kernel_counters, on_path, runs):
         f"s (datasets, nodes fitted on the card, one epoch, its eval, "
         f"checkpoints); test loss {logged['test_loss']}, accuracy "
         f"{logged['test_accuracy']}; last train loss {summary['train_loss']}; "
-        f"checkpoint {ckpt}; kernel launches {launches}")
+        f"checkpoint {ckpt}; {graphs.captures} captures, {graphs.replays} "
+        f"replays; kernel launches {launches} (warm-ups and captures) by "
+        f"(B, N, C, M) {shapes}")
     log(f"Trainer epoch with the loader in: {sec * 1e3:.4f} ms a step "
         f"({B / sec:.1f} clouds/s)")
     if (load_config(os.path.join(run, "config.json")).to_dict()
@@ -1451,11 +1579,14 @@ def phase_trainer(kernel_counters, on_path, runs):
         raise AssertionError("the synthetic splits are not 320 and 160")
     if trainer.state.step != steps:
         raise AssertionError("the Trainer did not resume the command's run")
+    # a warm-up and a capture of the train step and of the eval step
+    if ((graphs.captures, graphs.replays) != (2, steps + n_eval)
+            or shapes != {(B, 15000, 384, 64): 4}):
+        raise AssertionError(f"want 2 captures, {steps + n_eval} replays "
+                             f"and kernel 1 at (8, 15000, 384, 64) only")
     for n in on_path:
-        if launches[n] != steps + n_eval:
-            raise AssertionError(f"{n} launched {launches[n]} times in an "
-                                 f"epoch of {steps} steps and {n_eval} eval "
-                                 f"batches")
+        if launches[n] != 4:
+            raise AssertionError(f"{n} launched {launches[n]} times")
     loss, count = _eval_by_hand(trainer.state, trainer.eval_step,
                                 trainer.test_loader)
     log(f"eval by hand over {count} valid items: loss {loss} vs the run's "
@@ -1497,7 +1628,21 @@ def phase_trainer(kernel_counters, on_path, runs):
         f"(tolerance {LOGIT_RTOL} x {scale})")
     if got.shape != want.shape or diff > LOGIT_RTOL * scale:
         raise AssertionError("from_run does not answer as the Trainer")
-    return launches
+
+    eager, graph, rel = captured_and_eager_host_step(
+        trainer, next(iter(trainer.train_loader)))
+    log(f"a host-pipeline step, eager vs captured from the same state, "
+        f"batch and generator: loss {eager} vs {graph}, updates {rel:.3e} "
+        f"apart (bit-equal {rel == 0.0}; tolerance {CAPTURED_RTOL})")
+    if (abs(eager - graph) > CAPTURED_RTOL * abs(eager)
+            or not rel <= CAPTURED_RTOL):
+        raise AssertionError("the captured host step is not the eager step")
+    ev = [trainer.evaluate() for _ in range(2)]
+    log(f"evaluate() twice through the captured eval step: {ev[0]} and "
+        f"{ev[1]}")
+    if ev[0] != ev[1]:
+        raise AssertionError("the captured eval is not reproducible")
+    return launches, graphs.replays
 
 
 def _shrec_tree(np, root, cfg, counts=(("train", 110), ("val", 55),
@@ -1540,8 +1685,10 @@ def phase_retrieve(kernel_counters, on_path, runs):
     evaluated on ``val``, then ``sonet-torch retrieve`` from its checkpoint
     over the test split.  Its rank files are held against the test split's
     scores from the same checkpoint ranked by ``retrieval.rank_all`` on the
-    card, and that ranking against the CPU's; metrics.  Returns the
-    launches of every kernel in the two commands' runs."""
+    card, and that ranking against the CPU's; metrics.  The train and eval
+    steps and ``extract_scores``'s eval step are captured graphs, replayed
+    once a batch.  Returns (the launches of every kernel in the two
+    commands' runs, their replays)."""
     import numpy as np
     import torch
     from sonet_torch import config, retrieval, train
@@ -1560,22 +1707,27 @@ def phase_retrieve(kernel_counters, on_path, runs):
     run = os.path.join(runs, "retrieve")
     out = os.path.join(runs, "rank")
     _reset(kernel_counters)
-    _cli(["classify", "--device", "cuda", "--epochs", "1", "--checkpoints_dir",
-          runs, "--name", "retrieve"] + data)
-    ckpt = train.latest_checkpoint(os.path.join(run, "ckpt"))
-    if ckpt is None:
-        raise AssertionError("sonet-torch classify left no checkpoint")
-    retrieve_s = _cli(["retrieve", "--device", "cuda", "--checkpoint", ckpt,
-                       "--output_dir", out] + data)
+    with _GraphCounter() as graphs:
+        _cli(["classify", "--device", "cuda", "--epochs", "1",
+              "--checkpoints_dir", runs, "--name", "retrieve"] + data)
+        ckpt = train.latest_checkpoint(os.path.join(run, "ckpt"))
+        if ckpt is None:
+            raise AssertionError("sonet-torch classify left no checkpoint")
+        retrieve_s = _cli(["retrieve", "--device", "cuda", "--checkpoint",
+                           ckpt, "--output_dir", out] + data)
     launches = _launch_counts(kernel_counters)
     n_batches = -(-55 // cfg.batch_size)
-    want_launches = 110 // cfg.batch_size + 2 * n_batches
-    log(f"sonet-torch retrieve took {retrieve_s:.3f} s; kernel launches in "
-        f"both commands {launches}")
+    want_replays = 110 // cfg.batch_size + 2 * n_batches
+    log(f"sonet-torch retrieve took {retrieve_s:.3f} s; in both commands "
+        f"{graphs.captures} captures, {graphs.replays} replays, kernel "
+        f"launches {launches}")
+    # classify: the train and the eval step; retrieve: its eval step
+    if (graphs.captures, graphs.replays) != (3, want_replays):
+        raise AssertionError(f"want 3 captures and {want_replays} replays")
     for n in on_path:
-        if launches[n] != want_launches:
+        if launches[n] != 6:
             raise AssertionError(f"{n} launched {launches[n]} times, want "
-                                 f"{want_launches}")
+                                 f"a warm-up and a capture of 3 steps")
 
     # the same checkpoint, scored and ranked here
     state = train.init_state(cfg, device="cuda", seed=cfg.seed)
@@ -1649,7 +1801,7 @@ def phase_retrieve(kernel_counters, on_path, runs):
             not all(np.isfinite(v) and 0.0 <= v <= 1.0
                     for v in scores_m.values())):
         raise AssertionError("retrieval: bad rank files or metrics")
-    return launches
+    return launches, graphs.replays
 
 
 class _Tee:
@@ -1772,9 +1924,10 @@ def phase_reproduce(kernel_counters, on_path, runs):
     archive (80 train, 41 test shapes); ``sonet-torch reproduce --preset
     modelnet40`` ingests it, fits its SOM nodes on the card (``prep som``,
     batches of 64 clouds of 4096 points), checks the tree, trains one
-    epoch at B=8, N=5000 and prints the verdict, below the 0.918 gate (rc 1); the same command again
+    epoch at B=8, N=5000 (captured steps, one replay a batch) and prints
+    the verdict, below the 0.918 gate (rc 1); the same command again
     reuses the tree and the run.  Returns (the first command's kernel
-    launches, the run directory)."""
+    launches, its replays, the run directory)."""
     import numpy as np
     import torch
     from sonet_torch import som
@@ -1793,13 +1946,14 @@ def phase_reproduce(kernel_counters, on_path, runs):
             "--device", "cuda"]
     _reset(kernel_counters)
     t0 = time.perf_counter()
-    rc, out = _cli_output(argv)
+    with _GraphCounter() as graphs:
+        rc, out = _cli_output(argv)
     took = time.perf_counter() - t0
     launches = _launch_counts(kernel_counters)
     v = _verdict(out)
     log(f"sonet-torch reproduce took {took:.3f} s (ingest, prep som, check, "
-        f"one epoch, its eval): rc {rc}, verdict {v}; kernel launches "
-        f"{launches}")
+        f"one epoch, its eval): rc {rc}, verdict {v}; {graphs.captures} "
+        f"captures, {graphs.replays} replays; kernel launches {launches}")
     nodes = os.path.join(dest, "8x8_som_nodes")
     n_nodes = sum(len(f) for _, _, f in os.walk(nodes))
     if (rc != 1 or v["pass"] is not False or v["gate"] != 0.918
@@ -1808,10 +1962,12 @@ def phase_reproduce(kernel_counters, on_path, runs):
             or '"ok": true' not in out):
         raise AssertionError("sonet-torch reproduce: want the whole chain, "
                              "a verdict below the gate and rc 1")
+    if (graphs.captures, graphs.replays) != (2, 10 + 6):
+        raise AssertionError("want 2 captures and a replay for each of 10 "
+                             "steps and 6 eval batches")
     for n in on_path:
-        if launches[n] != 10 + 6:
-            raise AssertionError(f"{n} launched {launches[n]} times in 10 "
-                                 f"steps and 6 eval batches")
+        if launches[n] != 4:
+            raise AssertionError(f"{n} launched {launches[n]} times")
     rc2, out2 = _cli_output(argv)
     v2 = _verdict(out2)
     log(f"again: rc {rc2}, best {v2['best']} (first run {v['best']})")
@@ -1832,7 +1988,7 @@ def phase_reproduce(kernel_counters, on_path, runs):
     fit_ms = time_ms(lambda: som.fit(x, cfg, device="cuda"), reps=5)
     log(f"prep som's fit of {len(x)} clouds of 4096 points on the card: "
         f"{fit_ms:.4f} ms ({len(x) / fit_ms * 1e3:.1f} clouds/s)")
-    return launches, os.path.join(runs, "reproduce")
+    return launches, graphs.replays, os.path.join(runs, "reproduce")
 
 
 def _timed_clouds(items, batch, chunk=16):
@@ -1846,10 +2002,11 @@ def _timed_clouds(items, batch, chunk=16):
 def phase_infer(kernel_counters, on_path, run, card, runs):
     """``sonet-torch infer`` on the reproduce run's test split: 41 items in
     6 batches, the last padded (1 valid row of 8); its accuracy equal to
-    the run's own ``Trainer.evaluate()`` on the card over the same items.
-    Then infer's rate at ModelNet40 width over more items, the "trainer"
-    run's 160 test clouds three times, against the eval step alone by
-    events.  Returns the command's kernel launches."""
+    the run's own ``Trainer.evaluate()`` on the card over the same items,
+    the eval step one replay of a captured graph a batch.  Then infer's
+    rate at ModelNet40 width over more items, the "trainer" run's 160 test
+    clouds three times, against the eval step alone by events, eager and
+    replayed.  Returns (the command's kernel launches, its replays)."""
     import csv
     import numpy as np
     from sonet_torch.config import load_config
@@ -1857,23 +2014,25 @@ def phase_infer(kernel_counters, on_path, run, card, runs):
 
     out_dir = os.path.join(run, "infer")
     _reset(kernel_counters)
-    rc, out = _cli_output(["infer", "--run", run, "--device", "cuda",
-                           "--out", out_dir])
+    with _GraphCounter() as graphs:
+        rc, out = _cli_output(["infer", "--run", run, "--device", "cuda",
+                               "--out", out_dir])
     launches = _launch_counts(kernel_counters)
     summary = json.loads(out.strip().splitlines()[-1])
     with open(os.path.join(out_dir, "predictions.csv")) as f:
         rows = list(csv.reader(f))
     log(f"sonet-torch infer: {summary}; {len(rows) - 1} rows from 6 "
-        f"batches of 8, the last with {41 - 5 * 8} valid; kernel launches "
-        f"{launches}")
+        f"batches of 8, the last with {41 - 5 * 8} valid; {graphs.captures} "
+        f"capture, {graphs.replays} replays; kernel launches {launches}")
     if (rc != 0 or summary["items"] != 41 or len(rows) != 42
             or rows[0] != ["index", "label", "pred", "correct"]
             or [int(r[0]) for r in rows[1:]] != list(range(41))):
         raise AssertionError("sonet-torch infer: bad summary or rows")
+    if (graphs.captures, graphs.replays) != (1, 6):
+        raise AssertionError("want 1 capture and 6 replays for 6 batches")
     for n in on_path:
-        if launches[n] != 6:
-            raise AssertionError(f"{n} launched {launches[n]} times for 6 "
-                                 f"batches")
+        if launches[n] != 2:
+            raise AssertionError(f"{n} launched {launches[n]} times")
     # the run's Trainer over the same items: its test loader one epoch on,
     # as infer's is (both draw the points of the JAX package's inference)
     trainer = Trainer(load_config(os.path.join(run, "config.json")),
@@ -1901,23 +2060,26 @@ def phase_infer(kernel_counters, on_path, run, card, runs):
         rates.append(got["clouds_per_sec"])
     batch = _to_card(next(iter(trainer.test_loader)))
     step_ms = time_ms(lambda: trainer.eval_step(trainer.state, batch), reps=20)
+    replay_ms = time_ms(lambda: trainer.eval_graph(**batch), reps=20)
     log(f"infer on {card}, B=8, N=5000: {rates} clouds/s over "
         f"{_timed_clouds(160, 8, 4)} timed clouds each, host clock after "
-        f"the first chunk; the eval step alone {step_ms:.4f} ms by events "
-        f"({8 / step_ms * 1e3:.1f} clouds/s); the 41-item split: "
-        f"{summary['clouds_per_sec']} clouds/s over "
+        f"the first chunk; the eval step alone by events: eager "
+        f"{step_ms:.4f} ms ({8 / step_ms * 1e3:.1f} clouds/s), captured "
+        f"{replay_ms:.4f} ms ({8 / replay_ms * 1e3:.1f} clouds/s); the "
+        f"41-item split: {summary['clouds_per_sec']} clouds/s over "
         f"{_timed_clouds(41, 8)} timed clouds")
-    return launches
+    return launches, graphs.replays
 
 
 def phase_mnist(kernel_counters, on_path, runs, card):
     """MNIST as a user runs it: a fabricated ``mnist.npz`` (2,048 train and
     512 test digits drawn from a seed), ``sonet-torch classify --preset
     mnist`` for one epoch (its datasets fit their 5x5 2-D nodes on the
-    card), then ``sonet-torch infer`` on the run.  Kernel 1 must see only
-    the (8, 1536, 384) bf16, M=25 shape; the nodes are held by their
-    quantization error against a CPU fit.  Returns the kernel launches of
-    the two commands."""
+    card), then ``sonet-torch infer`` on the run, each step a replay of a
+    captured graph.  Kernel 1 must see only the (8, 1536, 384) bf16, M=25
+    shape; the nodes are held by their quantization error against a CPU
+    fit; a train step timed eager and replayed.  Returns (the kernel
+    launches of the two commands, their replays)."""
     import numpy as np
     import torch
     from sonet_torch import config, som
@@ -1940,16 +2102,18 @@ def phase_mnist(kernel_counters, on_path, runs, card):
     real, shapes = smw._kernel(), {}
 
     def recording(*args):
-        key = tuple(args[4:8])                      # B, N, C, M
+        key = _kernel1_key(args)                    # B, N, C, M
         shapes[key] = shapes.get(key, 0) + 1
         return real(*args)
     _reset(kernel_counters)
     smw._fn = recording
     try:
-        t0 = time.perf_counter()
-        _cli(["classify", "--device", "cuda"] + flags)
-        took = time.perf_counter() - t0
-        rc, out = _cli_output(["infer", "--run", run, "--device", "cuda"])
+        with _GraphCounter() as graphs:
+            t0 = time.perf_counter()
+            _cli(["classify", "--device", "cuda"] + flags)
+            took = time.perf_counter() - t0
+            rc, out = _cli_output(["infer", "--run", run, "--device",
+                                   "cuda"])
     finally:
         smw._fn = real
     launches = _launch_counts(kernel_counters)
@@ -1960,15 +2124,19 @@ def phase_mnist(kernel_counters, on_path, runs, card):
         f"512 digits to clouds, nodes fitted on the card, 256 steps, 64 "
         f"eval batches): test loss {logged['test_loss']}, accuracy "
         f"{logged['test_accuracy']}; a step with the loader in "
-        f"{step * 1e3:.4f} ms; infer {summary}; kernel launches {launches} "
+        f"{step * 1e3:.4f} ms; infer {summary}; {graphs.captures} "
+        f"captures, {graphs.replays} replays; kernel launches {launches} "
         f"by (B, N, C, M) {shapes}")
-    want = {(8, 1536, 384, 25): 256 + 64 + 64}
+    # a warm-up and a capture of the train, the eval and infer's step
+    want = {(8, 1536, 384, 25): 6}
     if (rc != 0 or summary["items"] != 512 or shapes != want
+            or (graphs.captures, graphs.replays) != (3, 256 + 64 + 64)
             or not np.isfinite(logged["test_loss"])
             or not np.isfinite(summary["loss"])):
-        raise AssertionError("MNIST: bad metrics or kernel 1 shapes")
+        raise AssertionError("MNIST: bad metrics, replays or kernel 1 "
+                             "shapes")
     for n in on_path:
-        if launches[n] != 256 + 64 + 64:
+        if launches[n] != 6:
             raise AssertionError(f"{n} launched {launches[n]} times")
 
     # the nodes the command fitted on the card, against a CPU fit
@@ -1990,21 +2158,31 @@ def phase_mnist(kernel_counters, on_path, runs, card):
     # one train step and one eval step alone, by events
     trainer = Trainer(cfg, quiet=True, device="cuda")
     batch = _to_card(next(iter(trainer.train_loader)))
+
     def step():
         trainer.train_step(trainer.state, batch, trainer.generator)
+
+    def replay():
+        trainer.train_graph(**batch)
+
     step_ms = time_ms(step, reps=20)
+    replay_ms = time_ms(replay, reps=20)
     wall, busy, rows = _busy_share(lambda: [step() for _ in range(5)])
-    log(f"MNIST train step at B=8 on the card: {step_ms:.4f} ms by events "
-        f"({8 / step_ms * 1e3:.1f} clouds/s); under torch.profiler "
-        f"{busy * 1e3 / 5:.4f} ms of device time in {rows // 5} device rows "
-        f"a step, the card busy {busy / wall:.1%} of the 5 steps")
+    rwall, rbusy, rrows = _busy_share(lambda: [replay() for _ in range(5)])
+    log(f"MNIST train step at B=8 on the card by events: eager "
+        f"{step_ms:.4f} ms ({8 / step_ms * 1e3:.1f} clouds/s), captured "
+        f"{replay_ms:.4f} ms ({8 / replay_ms * 1e3:.1f} clouds/s); under "
+        f"torch.profiler, eager {busy * 1e3 / 5:.4f} ms of device time in "
+        f"{rows // 5} device rows a step, the card busy {busy / wall:.1%} "
+        f"of the 5 steps; captured {rbusy * 1e3 / 5:.4f} ms in "
+        f"{rrows // 5} rows, busy {rbusy / rwall:.1%}")
     eval_ms = time_ms(lambda: trainer.eval_step(trainer.state, batch),
                       reps=20)
     log(f"MNIST infer on {card}, B=8, N=512: {summary['clouds_per_sec']} "
         f"clouds/s over {_timed_clouds(512, 8)} timed clouds, host clock "
         f"after the first chunk; the eval step alone {eval_ms:.4f} ms by "
         f"events ({8 / eval_ms * 1e3:.1f} clouds/s)")
-    return launches
+    return launches, graphs.replays
 
 
 def _post(url, body, ctype):
@@ -2032,7 +2210,10 @@ def phase_serve_http(kernel_counters, on_path, run):
     same cloud and nearer to it than to any other cloud's; 200 requests in
     a row and 8 bursts of 16 with micro-batching on and as many off, in
     alternating rounds; then ``drain_server`` with a request in flight.
-    Returns the kernel launches of the first 16 requests."""
+    The engine's warm-up captures the forward; every dispatch, the
+    micro-batcher's included, is one replay.  Returns (the kernel
+    launches from the warm-up to the first 16 requests' answers, their
+    replays)."""
     import io
     import threading
     import numpy as np
@@ -2041,7 +2222,8 @@ def phase_serve_http(kernel_counters, on_path, run):
     from sonet_torch.tasks import serve
 
     engine = ServingEngine.from_run(run, device="cuda")
-    engine.warmup()
+    _reset(kernel_counters)
+    engine.warmup()                     # kernel 1: a warm-up and a capture
     names = engine.input_names
     clouds = _clouds(np, 16, load_config(os.path.join(run, "config.json")),
                      seed=21)
@@ -2094,9 +2276,10 @@ def phase_serve_http(kernel_counters, on_path, run):
 
     try:
         before = engine.stats()
-        _reset(kernel_counters)
+        r0 = engine.graph.replays
         got, wall_ms = concurrent()
         launches = _launch_counts(kernel_counters)
+        replays = engine.graph.replays - r0
         s = engine.stats()
         bad, worst = misrouted(got)
         log(f"16 concurrent B'=1 HTTP requests, micro-batching on (5 ms): "
@@ -2106,14 +2289,17 @@ def phase_serve_http(kernel_counters, on_path, run):
             f"within {worst:.3g} of the largest score of its direct predict "
             f"(tolerance {LOGIT_RTOL}), two clouds' direct answers at least "
             f"{apart.min():.3g} apart; answers off or nearer another cloud's "
-            f"{bad}; kernel launches {launches}")
+            f"{bad}; {replays} replays, kernel launches {launches}")
         if (bad or s["coalesced_requests"] == 0
                 or s["dispatches"] - before["dispatches"] >= 16
                 or s["requests"] - before["requests"] != 16):
             raise AssertionError("micro-batched HTTP serving is wrong")
-        for n in on_path:
-            if launches[n] != s["dispatches"] - before["dispatches"]:
-                raise AssertionError(f"{n} launched {launches[n]} times")
+        if (replays != s["dispatches"] - before["dispatches"]
+                or engine.graph.captures != 1
+                or any(launches[n] != 2 for n in on_path)):
+            raise AssertionError(f"want a replay a dispatch of the forward "
+                                 f"captured at the warm-up, got {replays} "
+                                 f"and launches {launches}")
 
         # 4 rounds, the modes' order alternating: 50 requests in a row and
         # 2 bursts of 16 each; every burst's answers held as the first's
@@ -2175,7 +2361,7 @@ def phase_serve_http(kernel_counters, on_path, run):
             raise AssertionError("drain_server: wrong answers while draining")
     finally:
         serve.drain_server(srv, engine)
-    return launches
+    return launches, replays
 
 
 class _GraphCounter:
@@ -2202,9 +2388,22 @@ class _GraphCounter:
         self.cls.capture_begin, self.cls.replay = self.real
 
 
+def _kernel1_key(args):
+    """(B, N, C, M) of a call of kernel 1's C function, with "direct"
+    added where the input would not take the bulk kernel: its pointer and
+    row bytes, read as ``kernel_path`` reads them (inside a graph as
+    well)."""
+    from sonet_torch.ops.cuda import segment_max_window as smw
+    ptr, code, B, N, C, M = args[0], args[1], *args[4:8]
+    row = C * (4 if code == 0 else 2)
+    lo, hi = smw._BULK_ROW_BYTES
+    bulk = ptr % 16 == 0 and row % 16 == 0 and lo <= row <= hi
+    return (B, N, C, M) if bulk else (B, N, C, M, "direct")
+
+
 def _kernel1_shapes():
     """(record context, shapes) that counts each call of kernel 1's C
-    function by (B, N, C, M); in a graph a call is its capture."""
+    function by ``_kernel1_key``; in a graph a call is its capture."""
     import contextlib
     from sonet_torch.ops.cuda import segment_max_window as smw
     shapes = {}
@@ -2214,7 +2413,7 @@ def _kernel1_shapes():
         real = smw._kernel()
 
         def recording(*args):
-            key = tuple(args[4:8])
+            key = _kernel1_key(args)
             shapes[key] = shapes.get(key, 0) + 1
             return real(*args)
         smw._fn = recording
@@ -2262,6 +2461,32 @@ def captured_and_eager_step(t):
     restore()
     t.generator.set_state(gen)
     loss = float(t.train_graph.run(t.device_train, row)["loss"][0])
+    if t.state.step != step0 + 1:
+        raise AssertionError("a replay did not advance the step")
+    return eager_loss, loss, update_rel_diff(before, eager,
+                                              _state_tensors(t))
+
+
+def captured_and_eager_host_step(t, batch):
+    """One train step of the host- or native-pipeline ``Trainer`` ``t`` on
+    ``batch`` (host arrays), eagerly (``t.train_step`` on the batch on the
+    card) and then as a replay of ``t.train_graph``, from the same
+    weights, Adam state and generator state.  Returns (eager loss,
+    replayed loss, the relative difference of their updates); ``t`` is
+    left after the replay."""
+    import torch
+    host = t._pinned_batch(batch)
+    before = _state_tensors(t)
+    restore, gen = t._snapshot(), t.generator.get_state()
+    step0 = t.state.step
+    _, m = t.train_step(t.state, {k: v.to(t.device) for k, v in
+                                  host.items()}, t.generator)
+    eager_loss = float(m["loss"])
+    eager = _state_tensors(t)
+    restore()
+    t.generator.set_state(gen)
+    loss = float(t.train_graph(**host)["loss"])
+    torch.cuda.synchronize()
     if t.state.step != step0 + 1:
         raise AssertionError("a replay did not advance the step")
     return eager_loss, loss, update_rel_diff(before, eager,
@@ -2411,8 +2636,9 @@ def phase_trainer_device(kernel_counters, on_path, runs):
         f"device ms, busy share) a step: device {busy['device']}, host "
         f"{busy['host']}; the timed device epochs: {captures} captures, "
         f"{replays} replays")
-    if captures or replays != 3 * 10:
-        raise AssertionError("a timed device epoch captured its step again")
+    # the host pipeline's steps are captured too: 3 epochs of 10 each
+    if captures or replays != 2 * 3 * 10:
+        raise AssertionError("a timed epoch captured its step again")
     t.train_epoch(2)
     t._save()
     back = Trainer(cfg.replace(input_pipeline="host"), quiet=True,
@@ -2426,7 +2652,7 @@ def phase_trainer_device(kernel_counters, on_path, runs):
                 bad.append(k)
     log(f"the run restored into a host-pipeline Trainer at step "
         f"{back.state.step}: tensors differing {bad}")
-    if bad or back.state.step != t.state.step or any(
+    if bad or back.state.step != t.state.step or not all(
             g["capturable"] for g in back.state.optimizer.param_groups):
         raise AssertionError("the device run does not restore into a host "
                              "Trainer bit for bit")
@@ -2476,8 +2702,11 @@ def phase_trainer_native(kernel_counters, on_path, runs):
     pipeline's in alternating order (a step with the loader in, the busy
     share), and ``sonet-torch infer --input_pipeline native`` on the run:
     41 rows, its accuracy equal to the run's ``Trainer.evaluate()`` over
-    the same items.  Returns the kernel launches of the two commands."""
+    the same items; each step a replay of a captured graph; the run
+    restored into a device-pipeline ``Trainer`` bit for bit.  Returns (the
+    kernel launches of the two commands, their replays)."""
     import csv
+    import torch
     from sonet_torch import config
     from sonet_torch.data.native_loader import NativeModelNetDataset
     from sonet_torch.train.trainer import Trainer
@@ -2489,21 +2718,26 @@ def phase_trainer_native(kernel_counters, on_path, runs):
     cfg = config.parse_args(flags)
     run = os.path.join(runs, "trainer_native")
     _reset(kernel_counters)
-    took = _cli(["classify", "--device", "cuda", "--epochs", "1"] + flags)
-    out_dir = os.path.join(run, "infer")
-    rc, out = _cli_output(["infer", "--run", run, "--device", "cuda",
-                           "--input_pipeline", "native", "--out", out_dir])
+    with _GraphCounter() as graphs:
+        took = _cli(["classify", "--device", "cuda", "--epochs", "1"] + flags)
+        out_dir = os.path.join(run, "infer")
+        rc, out = _cli_output(["infer", "--run", run, "--device", "cuda",
+                               "--input_pipeline", "native", "--out",
+                               out_dir])
     launches = _launch_counts(kernel_counters)
     summary = json.loads(out.strip().splitlines()[-1])
     with open(os.path.join(out_dir, "predictions.csv")) as f:
         rows = list(csv.reader(f))
     log(f"native pipeline: sonet-torch classify took {took:.3f} s (one "
-        f"epoch, its eval); infer {summary}, {len(rows) - 1} rows; kernel "
+        f"epoch, its eval); infer {summary}, {len(rows) - 1} rows; "
+        f"{graphs.captures} captures, {graphs.replays} replays; kernel "
         f"launches {launches}")
     if rc != 0 or summary["items"] != 41 or len(rows) != 42:
         raise AssertionError("native infer: bad summary or rows")
+    if (graphs.captures, graphs.replays) != (3, 10 + 6 + 6):
+        raise AssertionError("native: want 3 captures and 22 replays")
     for n in on_path:
-        if launches[n] != 10 + 6 + 6:
+        if launches[n] != 6:
             raise AssertionError(f"{n} launched {launches[n]} times")
     t = Trainer(cfg, quiet=True, device="cuda")
     if not isinstance(t.test_set, NativeModelNetDataset):
@@ -2514,13 +2748,288 @@ def phase_trainer_native(kernel_counters, on_path, runs):
     if ev["accuracy"] != summary["accuracy"] or abs(
             ev["loss"] - summary["loss"]) > 1e-6 * max(1.0, ev["loss"]):
         raise AssertionError("native infer disagrees with the run's Trainer")
-    steps, busy, _ = _epoch_readings(runs, tree, ("native", "host"))
+    t._save()
+    dev = Trainer(cfg.replace(input_pipeline="device"), quiet=True,
+                  device="cuda")
+    bad = _same_tensors(torch, dev.model.state_dict(),
+                        t.model.state_dict(), None)
+    sa, sb = t.state.optimizer.state, dev.state.optimizer.state
+    for pa, pb in zip(t.model.parameters(), dev.model.parameters()):
+        for k, v in sa.get(pa, {}).items():
+            if not torch.equal(v.cpu(), sb[pb][k].cpu()):
+                bad.append(k)
+    log(f"the native run restored into a device-pipeline Trainer at step "
+        f"{dev.state.step}: tensors differing {bad}")
+    if bad or dev.state.step != t.state.step:
+        raise AssertionError("the native run does not restore into a "
+                             "device Trainer bit for bit")
+    del dev
+    steps, busy, (captures, replays) = _epoch_readings(
+        runs, tree, ("native", "host"))
     log(f"epochs of 10 steps on the tree, a step with the loader in, "
         f"alternating native host host native: native {steps['native']} ms, "
         f"host {steps['host']} ms; under torch.profiler, (host clock ms, "
         f"device ms, busy share) a step: native {busy['native']}, host "
-        f"{busy['host']}")
-    return launches
+        f"{busy['host']}; {captures} captures, {replays} replays")
+    if captures or replays != 2 * 3 * 10:
+        raise AssertionError("a timed epoch captured its step again")
+    return launches, graphs.replays
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def _served_apart(got, want):
+    """Max abs difference of ``got`` from ``want`` over want's largest
+    entry (at least 1), and whether the two are equal."""
+    import numpy as np
+    scale = max(1.0, float(np.abs(want).max()))
+    return float(np.abs(got - want).max()) / scale, bool(
+        np.array_equal(got, want))
+
+
+def phase_export(kernel_counters, on_path, run, runs):
+    """The "reproduce" run (``config.modelnet40()`` width) exported as a
+    user exports it, ``sonet-torch export --check`` three times: the
+    default (``cuda``: one B=8 program keeping kernel 1 as
+    ``sonet_torch::windowed_vals``), ``--poly_batch`` (bucketed: a program
+    for each of B = 1, 2, 4, 8, each keeping the kernel) and
+    ``--platforms cpu,cuda --poly_batch`` (one symbolic-batch program on
+    the portable scatter path); artifact bytes and export times.  Each is
+    served by ``ServingEngine.from_artifact`` (a captured graph a
+    program's batch) on 41 clouds at B' = 1, 3, 8 and 41 and held within
+    the bf16 rule of ``from_run`` (the kernel artifacts) or of the same
+    run served with scatter pooling (the portable one, stored on the CPU
+    and moved onto the card).  The portable artifact also answers on the
+    CPU through ``load_exported``, and a child process that cannot import
+    ``sonet_torch`` loads its ``model.pt2`` with ``torch.export.load``
+    and answers, on the card and on the CPU with the card hidden.  Then
+    ``tasks.serve.make_server`` on the default artifact answers 16
+    concurrent B'=1 requests, and ``sonet-torch serve --artifact``, as a
+    process, one.  Returns (the kernel launches from the engines' warm-ups
+    on, their replays)."""
+    import io
+    import threading
+    import numpy as np
+    import torch
+    from sonet_torch.config import load_config
+    from sonet_torch.serving import ServingEngine, _restore_run
+    from sonet_torch.tasks import serve
+
+    cfg = load_config(os.path.join(run, "config.json"))
+    forms = {"cuda": [], "bucketed": ["--poly_batch"],
+             "portable": ["--platforms", "cpu,cuda", "--poly_batch"]}
+    arts, made = {}, {}
+    for form, extra in forms.items():
+        arts[form] = os.path.join(runs, f"export_{form}")
+        t0 = time.perf_counter()
+        rc, out = _cli_output(["export", "--run", run, "--out", arts[form],
+                               "--device", "cuda", "--check"] + extra)
+        took = time.perf_counter() - t0
+        m = json.loads(out.strip().splitlines()[-1])
+        made[form] = m
+        log(f"export [{form}]: {took:.3f} s (the export, a reload and a "
+            f"check on zeros), {_dir_bytes(arts[form])} bytes in "
+            f"{sorted(os.listdir(arts[form]))}; pooling {m['pooling']}, "
+            f"requires {m['requires']}, buckets {m.get('buckets')}, check "
+            f"{m['check']}")
+        if rc != 0 or not m["check"]["finite"]:
+            raise AssertionError(f"sonet-torch export [{form}] failed")
+    if ([made[f]["pooling"] for f in forms]
+            != ["sorted_window", "sorted_window", "scatter"]
+            or made["bucketed"]["buckets"] != [1, 2, 4, 8]):
+        raise AssertionError("export: wrong pooling or buckets")
+    for form in ("cuda", "bucketed"):
+        program = torch.export.load(os.path.join(
+            arts[form], "model.pt2" if form == "cuda" else "model_b8.pt2"))
+        if not any(str(n.target) == "sonet_torch.windowed_vals.default"
+                   for n in program.graph.nodes):
+            raise AssertionError(f"export [{form}] lost the operator")
+        del program
+
+    clouds = _clouds(np, 41, cfg, seed=31)
+    names = ["pc", "sn", "node"]
+    ref = ServingEngine.from_run(run, device="cuda")
+    scfg, smodel, _, _ = _restore_run(run, device="cuda", pooling="scatter")
+    ref_scatter = ServingEngine.from_model(smodel, scfg, device="cuda")
+    sizes = (1, 3, 8, 41)
+    want = {b: ref.predict({n: clouds[n][:b] for n in names}) for b in sizes}
+    want_s = {b: ref_scatter.predict({n: clouds[n][:b] for n in names})
+              for b in sizes}
+
+    record, shapes = _kernel1_shapes()
+    engines = {}
+    _reset(kernel_counters)
+    replays = 0
+    with record():
+        for form in forms:
+            eng = engines[form] = ServingEngine.from_artifact(arts[form],
+                                                              device="cuda")
+            eng.warmup()
+            # one program at B, a program a bucket, the symbolic one at
+            # each power of 2 up to the micro-batcher's fill of 8
+            warm = eng.graph.captures
+            if warm != (1 if form == "cuda" else 4):
+                raise AssertionError(f"from_artifact [{form}]: the warm-up "
+                                     f"captured {warm} graphs")
+            r0 = eng.graph.replays
+            against = want_s if form == "portable" else want
+            got = {b: eng.predict({n: clouds[n][:b] for n in names})
+                   for b in sizes}
+            torch.cuda.synchronize()
+            replays += eng.graph.replays - r0
+            apart = {b: _served_apart(got[b], against[b]) for b in sizes}
+            log(f"from_artifact [{form}]: batch {eng.batch_size}, "
+                f"{warm} captures at the warm-up, {eng.graph.captures} in "
+                f"all, "
+                f"{eng.graph.replays - r0} replays for B' = {sizes}; "
+                f"against from_run{' (scatter)' if form == 'portable' else ''}"
+                f" (max abs diff / largest entry, equal): {apart}")
+            if any(d > LOGIT_RTOL for d, _ in apart.values()) or any(
+                    got[b].shape != _score_shape(cfg, b) for b in sizes):
+                raise AssertionError(f"from_artifact [{form}] disagrees "
+                                     f"with from_run")
+    launches = _launch_counts(kernel_counters)
+    log(f"the artifacts' engines: {replays} replays; kernel 1 launches "
+        f"{launches} (warm-ups and captures) by (B, N, C, M) {shapes}")
+    # the cuda artifact's B=8 program and each bucket's
+    want_shapes = {(b, 15000, 384, 64): 4 if b == 8 else 2
+                   for b in (1, 2, 4, 8)}
+    if shapes != want_shapes:
+        raise AssertionError(f"kernel 1 shapes {shapes}, want {want_shapes}")
+
+    # the portable program is stored on the CPU: load_exported runs it
+    # there as it is, on 3 clouds, against the scatter engine on the card
+    from sonet_torch.serving import load_exported
+    fn, _ = load_exported(arts["portable"], device="cpu")
+    t0 = time.perf_counter()
+    on_cpu = fn(*(clouds[n][:3] for n in names))
+    took = time.perf_counter() - t0
+    d, same = _served_apart(on_cpu, want_s[3])
+    log(f"load_exported [portable] on the CPU: 3 clouds in {took:.3f} s, "
+        f"{d:.3g} of the largest entry from the scatter engine on the card "
+        f"(equal {same})")
+    if d > LOGIT_RTOL:
+        raise AssertionError("the portable artifact answers otherwise on "
+                             "the CPU")
+
+    # the portable program in a process that cannot import sonet_torch:
+    # on the card (moved there by torch's own pass), and on the CPU with
+    # the card hidden, as on a host without one
+    code = ("import sys, numpy as np, torch\n"
+            "z = np.load(sys.argv[1])\n"
+            "dev = sys.argv[4]\n"
+            "ep = torch.export.load(sys.argv[2] + '/model.pt2')\n"
+            "if dev == 'cuda':\n"
+            "    from torch.export.passes import move_to_device_pass\n"
+            "    ep = move_to_device_pass(ep, dev)\n"
+            "elif torch.cuda.is_available():\n"
+            "    sys.exit(3)\n"
+            "with torch.no_grad():\n"
+            "    out = ep.module()(*(torch.from_numpy(z[k]).to(dev) for k in "
+            "('pc', 'sn', 'node')))\n"
+            "np.save(sys.argv[3], out.float().cpu().numpy())\n"
+            "sys.exit(1 if [m for m in sys.modules if m.startswith('sonet')]"
+            " else 0)\n")
+    for dev, n_clouds in (("cuda", 8), ("cpu", 3)):
+        x = {n: clouds[n][:n_clouds] for n in names}
+        np.savez(os.path.join(runs, "export_x.npz"), **x)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        if dev == "cpu":
+            env["CUDA_VISIBLE_DEVICES"] = ""
+        child_out = os.path.join(runs, "export_child.npy")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code,
+                            os.path.join(runs, "export_x.npz"),
+                            arts["portable"], child_out, dev],
+                           cwd=arts["portable"], env=env,
+                           capture_output=True, text=True, timeout=300)
+        took = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"the portable artifact did not load alone "
+                                 f"on {dev} (exit code {r.returncode}): "
+                                 f"{r.stderr[-2000:]}")
+        d, same = _served_apart(np.load(child_out), want_s[n_clouds])
+        log(f"a process without sonet_torch loaded the portable model.pt2 "
+            f"on {dev}{' (the card hidden)' if dev == 'cpu' else ''} and "
+            f"answered {n_clouds} clouds in {took:.3f} s, {d:.3g} of the "
+            f"largest entry from the scatter engine on the card (equal "
+            f"{same})")
+        if d > LOGIT_RTOL:
+            raise AssertionError(f"the portable artifact answers otherwise "
+                                 f"alone on {dev}")
+
+    # 16 concurrent B'=1 requests through make_server on the artifact
+    engine = engines["cuda"]
+    direct = engine.predict({n: clouds[n][:16] for n in names})
+    engine.start_microbatch(5.0)
+    srv = serve.make_server(engine, port=0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def body(i):
+        buf = io.BytesIO()
+        np.savez(buf, **{n: clouds[n][i:i + 1] for n in names})
+        return buf.getvalue()
+
+    got = [None] * 16
+
+    def ask(i):
+        _, raw = _post(url + "/v1/predict?format=npz", body(i),
+                       "application/x-npz")
+        with np.load(io.BytesIO(raw)) as z:
+            got[i] = z["output"]
+
+    try:
+        r0 = engine.graph.replays
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        far = [i for i in range(16) if got[i] is None
+               or _served_apart(got[i][0], direct[i])[0] > LOGIT_RTOL]
+        log(f"make_server on the artifact: 16 concurrent B'=1 requests in "
+            f"{engine.graph.replays - r0} replays, {engine.stats()}; answers "
+            f"off their direct predict {far}")
+        if far:
+            raise AssertionError("the artifact's daemon answered otherwise")
+    finally:
+        serve.drain_server(srv, engine)
+
+    # sonet-torch serve --artifact, as a process
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__)),
+         os.environ.get("PYTHONPATH", "")]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "sonet_torch.cli", "serve", "--artifact",
+         arts["cuda"], "--device", "cuda", "--port", "0"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    try:
+        line = proc.stdout.readline()
+        if not line:
+            raise AssertionError(f"sonet-torch serve --artifact did not "
+                                 f"start: {proc.communicate()[1][-2000:]}")
+        first = json.loads(line)
+        _, raw = _post(f"http://127.0.0.1:{first['port']}/v1/predict"
+                       "?format=npz", body(0), "application/x-npz")
+        with np.load(io.BytesIO(raw)) as z:
+            d, same = _served_apart(z["output"][0], direct[0])
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    log(f"sonet-torch serve --artifact: {first}; one B'=1 request "
+        f"{d:.3g} of the largest entry from the direct predict (equal "
+        f"{same}); drained with exit code {proc.returncode}")
+    if proc.returncode != 0 or d > LOGIT_RTOL or first["device"] != "cuda":
+        raise AssertionError(f"sonet-torch serve --artifact failed: "
+                             f"{err[-2000:]}")
+    return launches, replays
 
 
 def _get(url):
@@ -2607,15 +3116,26 @@ def main(argv=None) -> int:
     small = config.tiny_test()
     small_seg = small.replace(task="segment", classes=segment.classes)
     small_ae = small.replace(task="autoencode")
-    by_path = {}
-    with tempfile.TemporaryDirectory() as runs:
-        by_path["serve"] = phase_serve(classify, small, counters, on_path,
-                                       args.profile)
+    # every path's kernel launches (eager launches, and in a captured path
+    # the warm-up step's and the capture's) and its graph replays, each of
+    # which runs kernel 1 without a launch from the host
+    by_path, replays = {}, {}
+    record, shapes = _kernel1_shapes()
+
+    def timed(name, phase):
+        t1 = time.perf_counter()
+        out = phase()
+        log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
+        return out
+
+    with tempfile.TemporaryDirectory() as runs, record():
+        by_path["serve"], replays["serve"] = phase_serve(
+            classify, small, counters, on_path, args.profile)
         by_path["train"], _, classifier_ckpt = phase_train(
             classify, small.replace(dropout=0.0), counters, on_path,
             os.path.join(runs, "classify", "ckpt"), args.profile)
-        by_path["serve_segment"] = phase_serve(segment, small_seg, counters,
-                                               on_path, args.profile)
+        by_path["serve_segment"], replays["serve_segment"] = phase_serve(
+            segment, small_seg, counters, on_path, args.profile)
         seg_run = os.path.join(runs, "segment")
         by_path["train_segment"], seg_state, seg_ckpt = phase_train(
             segment, small_seg.replace(dropout=0.0), counters, on_path,
@@ -2623,8 +3143,8 @@ def main(argv=None) -> int:
         phase_round_trip(segment, seg_state, seg_run, seg_ckpt,
                          classifier_ckpt)
         phase_som(args.profile)
-        by_path["serve_autoencode"] = phase_serve(autoenc, small_ae, counters,
-                                                  on_path, args.profile)
+        by_path["serve_autoencode"], replays["serve_autoencode"] = (
+            phase_serve(autoenc, small_ae, counters, on_path, args.profile))
         ae_run = os.path.join(runs, "autoencode")
         by_path["train_autoencode"], ae_state, ae_ckpt = phase_train(
             autoenc, small_ae.replace(dropout=0.0), counters, on_path,
@@ -2632,38 +3152,33 @@ def main(argv=None) -> int:
         phase_round_trip(autoenc, ae_state, ae_run, ae_ckpt, classifier_ckpt)
         for name, phase in (("trainer", phase_trainer),
                             ("retrieve", phase_retrieve)):
-            t1 = time.perf_counter()
-            by_path[name] = phase(counters, on_path, runs)
-            log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
-        t1 = time.perf_counter()
-        by_path["reproduce"], run = phase_reproduce(counters, on_path, runs)
-        log(f"phase reproduce: {time.perf_counter() - t1:.1f} s")
-        # the device pipeline's graphs replay kernel 1 without a launch
-        # from the host: their replays stand beside the launches
-        replays = {}
+            by_path[name], replays[name] = timed(
+                name, lambda: phase(counters, on_path, runs))
+        by_path["reproduce"], replays["reproduce"], run = timed(
+            "reproduce", lambda: phase_reproduce(counters, on_path, runs))
         for name, phase in (("trainer_device", phase_trainer_device),
-                            ("trainer_chunked", phase_trainer_chunked)):
-            t1 = time.perf_counter()
-            by_path[name], replays[name] = phase(counters, on_path, runs)
-            log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
-        t1 = time.perf_counter()
-        by_path["trainer_native"] = phase_trainer_native(counters, on_path,
-                                                         runs)
-        log(f"phase trainer_native: {time.perf_counter() - t1:.1f} s")
+                            ("trainer_chunked", phase_trainer_chunked),
+                            ("trainer_native", phase_trainer_native)):
+            by_path[name], replays[name] = timed(
+                name, lambda: phase(counters, on_path, runs))
         for name, phase in (
                 ("infer", lambda: phase_infer(counters, on_path, run, card,
                                               runs)),
                 ("mnist", lambda: phase_mnist(counters, on_path, runs, card)),
                 ("serve_http", lambda: phase_serve_http(counters, on_path,
-                                                        run))):
-            t1 = time.perf_counter()
-            by_path[name] = phase()
-            log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
+                                                        run)),
+                ("export", lambda: phase_export(counters, on_path, run,
+                                                runs))):
+            by_path[name], replays[name] = timed(name, phase)
+    # every shape kernel 1 was called at after phase 3, checks at small
+    # widths included, for the rule-2 watch of phase 3's readings
+    log(f"kernel 1 calls by (B, N, C, M) over the paths: {shapes}")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        k["graph_replays_by_path"] = (
-            replays if k["name"] in on_path else dict.fromkeys(replays, 0))
+        k["graph_replays_by_path"] = {
+            p: (replays.get(p, 0) if k["name"] in on_path else 0)
+            for p in by_path}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

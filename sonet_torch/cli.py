@@ -8,6 +8,8 @@
     sonet-torch reproduce  --preset modelnet40 --archive ...    # verdict
     sonet-torch infer      --run <dir> [--mode test]            # predictions
     sonet-torch serve      --run <dir> --port 8321              # HTTP daemon
+    sonet-torch serve      --artifact <dir> --port 8321         # an export
+    sonet-torch export     --run <dir> [--poly_batch]           # artifact
     sonet-torch prep       {sample,som,check,ingest} ...        # data prep
 
 Each command runs ``sonet_torch.tasks.<name>.main(argv)`` (``prep``:
@@ -39,6 +41,8 @@ _COMMANDS = {
               "restore a run and stream a split (predictions + metrics)"),
     "serve": ("sonet_torch.tasks.serve",
               "HTTP model server (JSON/npz predict API)"),
+    "export": ("sonet_torch.tasks.export",
+               "export a run to a torch.export serving artifact"),
     "prep": ("sonet_torch.data.prep",
              "dataset preparation (sample meshes, fit SOMs, check trees)"),
 }

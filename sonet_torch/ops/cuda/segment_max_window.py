@@ -3,9 +3,16 @@ behind the same function as the JAX package's Pallas kernel
 ``ops/pallas/segment_max_window.py:windowed_vals``, plus its plain
 PyTorch version.
 
-``windowed_vals`` takes the plain version only for tensors on the CPU.
-For CUDA tensors it launches the kernel or raises; it never falls back.
-``windowed_vals.launches`` counts the kernel's launches.
+The function is a registered operator, ``sonet_torch::windowed_vals``
+(``torch.library.custom_op``): its CPU implementation is the plain
+version, its CUDA implementation launches the kernel, and its fake
+implementation gives the (B, M, C) float32 shape, so ``torch.export``
+traces a model through it and keeps it as one node of the exported
+program.  ``windowed_vals`` is the op's checked entry point: it takes the
+plain version only for tensors on the CPU; for CUDA tensors the op
+launches the kernel or raises; any other device raises.  It never falls
+back.  ``windowed_vals.launches`` counts the kernel's launches (in a CUDA
+graph, its capture).
 
 The source holds two kernels for the one function.  ``kernel_path`` says
 which one an input takes, by its shape and alignment alone: ``"bulk"``
@@ -84,14 +91,36 @@ def windowed_vals(data: torch.Tensor, seg_ids: torch.Tensor,
     empties; see ``segment_max_windowed`` and ``ops.segment_fast``).
 
     data (B, N, C) bf16 or f32, contiguous; seg_ids (B, N) int32, sorted
-    for speed, any order for correctness.
+    for speed, any order for correctness.  Both on the CPU (the plain
+    version) or both on one CUDA device (the kernel).
     """
-    if data.device.type == "cpu" and seg_ids.device.type == "cpu":
-        return windowed_vals_plain(data, seg_ids, num_segments)
-    if data.device.type != "cuda" or seg_ids.device != data.device:
-        raise ValueError(f"windowed_vals: data on {data.device} and seg_ids "
-                         f"on {seg_ids.device}; both must be on one CUDA "
-                         "device (or both on the CPU)")
+    dev, ids_dev = data.device, seg_ids.device
+    if not (dev == ids_dev and dev.type in ("cpu", "cuda")):
+        raise ValueError(f"windowed_vals: data on {dev} and seg_ids on "
+                         f"{ids_dev}; both must be on one CUDA device (or "
+                         "both on the CPU)")
+    return torch.ops.sonet_torch.windowed_vals(data, seg_ids,
+                                               int(num_segments))
+
+
+windowed_vals.launches = 0
+
+
+@torch.library.custom_op(
+    "sonet_torch::windowed_vals", mutates_args=(), device_types="cpu",
+    schema="(Tensor data, Tensor seg_ids, int num_segments) -> Tensor")
+def _op(data, seg_ids, num_segments):
+    return windowed_vals_plain(data, seg_ids, num_segments)
+
+
+@_op.register_fake
+def _(data, seg_ids, num_segments):
+    B, _, C = data.shape
+    return data.new_empty((B, num_segments, C), dtype=torch.float32)
+
+
+@_op.register_kernel("cuda")
+def _(data, seg_ids, num_segments):
     if data.dtype not in _DTYPE_CODE:
         raise TypeError(f"windowed_vals: data dtype {data.dtype}, want "
                         "float32 or bfloat16")
@@ -104,6 +133,9 @@ def windowed_vals(data: torch.Tensor, seg_ids: torch.Tensor,
                          "and (B, N)")
     if not (data.is_contiguous() and seg_ids.is_contiguous()):
         raise ValueError("windowed_vals: data and seg_ids must be contiguous")
+    if seg_ids.device != data.device:
+        raise ValueError(f"windowed_vals: data on {data.device} and seg_ids "
+                         f"on {seg_ids.device}; want one CUDA device")
     B, N, C = data.shape
     M = int(num_segments)
     # the kernels index rows (B * N) and channels with 32-bit ints
@@ -121,9 +153,6 @@ def windowed_vals(data: torch.Tensor, seg_ids: torch.Tensor,
                            f"cudaError {err}")
     windowed_vals.launches += 1
     return out
-
-
-windowed_vals.launches = 0
 
 
 def segment_max_windowed(data: torch.Tensor, seg_ids: torch.Tensor,

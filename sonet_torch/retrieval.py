@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .ops.pairwise import pairwise_sqdist
+from .train.graphs import StepGraph
 
 
 def extract_scores(eval_step, state, loader, device_batch_fn,
@@ -27,22 +28,35 @@ def extract_scores(eval_step, state, loader, device_batch_fn,
     ids (T,)), numpy, the padding of each batch (its ``valid``) dropped.
 
     ``eval_step(state, batch)`` is the port's (``train.make_steps``), which
-    returns the ``score``; ``device_batch_fn`` puts a host batch on the
-    model's device.  ``scan_chunk`` is accepted for the JAX package's
-    signature and does not change the result: there it runs chunks of
-    batches as one ``lax.scan`` program, here every batch is its own
-    dispatch until the port has a captured eval step (ROADMAP.md §1 item
-    11f)."""
-    del scan_chunk
-    scores, labels, ids = [], [], []
+    returns the ``score``; ``device_batch_fn`` makes a host batch tensors
+    for it (pinned or on the model's device for a card).  On a card the
+    eval step is a captured graph (``train.graphs.StepGraph``), replayed
+    once a batch, as the JAX package's is a jitted program; on the CPU it
+    runs eagerly.  Scores are fetched once every ``scan_chunk`` batches
+    (the JAX package runs that many batches as one ``lax.scan`` program
+    and fetches once); the result does not depend on it."""
+    device = next(state.model.parameters()).device
+    graph = StepGraph(lambda **batch: eval_step(state, batch)["score"],
+                      device)
+    scores, labels, ids, pending = [], [], [], []
+
+    def fetch():
+        if pending:
+            got = torch.stack([p for p, _ in pending]).float().cpu().numpy()
+            scores.extend(g[:valid] for g, (_, valid) in zip(got, pending))
+            pending.clear()
+
     for batch in loader:
         valid = int(batch.pop("valid", len(batch["label"])))
         item_ids = batch.pop("id", None)
         labels.append(np.asarray(batch["label"])[:valid])
-        m = eval_step(state, device_batch_fn(batch))
-        scores.append(m["score"][:valid].float().cpu().numpy())
+        # the graph's output is overwritten by the next replay
+        pending.append((graph(**device_batch_fn(batch)).clone(), valid))
+        if len(pending) >= max(scan_chunk, 1):
+            fetch()
         if item_ids is not None:
             ids.append(np.asarray(item_ids)[:valid])
+    fetch()
     scores = np.concatenate(scores, 0)
     labels = np.concatenate(labels, 0)
     ids = (np.concatenate(ids, 0) if ids

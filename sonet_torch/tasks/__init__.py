@@ -1,8 +1,8 @@
 """Task drivers of the port (counterparts of the JAX package's ``tasks``;
 the reference's modelnet/train.py, part-seg/train.py,
 autoencoder/train.py and shrec16/test.py), and the port's batch inference
-(``infer``), one-command reproduction (``reproduce``) and HTTP daemon
-(``serve``).
+(``infer``), one-command reproduction (``reproduce``), serving artifacts
+(``export``) and HTTP daemon (``serve``).
 
 Each module has ``main(argv=None)``, reached as ``sonet-torch <command>``
 (``sonet_torch.cli``) or ``python -m sonet_torch.tasks.<name>``.  Every
@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import argparse
 
-__all__ = ["autoencode", "classify", "infer", "partseg", "reproduce",
-           "retrieve", "serve"]
+__all__ = ["autoencode", "classify", "export", "infer", "partseg",
+           "reproduce", "retrieve", "serve"]
 
 
 def device_parser() -> argparse.ArgumentParser:

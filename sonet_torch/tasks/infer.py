@@ -22,10 +22,12 @@ Outputs in --out (default <run>/infer), as the JAX package writes them:
     clouds/s
 
 The last batch is padded (``BatchLoader(pad_last=True)``); only its valid
-items give rows and sums.  ``--scan_chunk K`` issues K eval steps and then
-fetches their metrics at once: one host sync every K batches.  The first
-chunk holds the kernels' build at first use, so ``clouds_per_sec`` starts
-after it.
+items give rows and sums.  On a card the eval step is a captured CUDA
+graph (``train.graphs.StepGraph``), replayed once a batch, as the JAX
+package's is a jitted program.  ``--scan_chunk K`` issues K eval steps
+and then fetches their metrics at once: one host sync every K batches.
+The first chunk holds the kernels' build at first use and the capture,
+so ``clouds_per_sec`` starts after it.
 """
 
 from __future__ import annotations
@@ -88,6 +90,7 @@ def main(argv=None):
     from ..config import load_config
     from ..data.pipeline import BatchLoader
     from ..device import refuse_mesh, resolve_device
+    from ..train.graphs import StepGraph
     from ..train.trainer import build_dataset
 
     cfg = load_config(os.path.join(args.run, "config.json"))
@@ -119,13 +122,15 @@ def main(argv=None):
     K = max(1, min(args.scan_chunk, (len(loader) + 1) // 2))
 
     def to_device(batch):
+        """Host arrays -> tensors for the step: pinned on a card, copied
+        into the graph's static buffers on the compute stream."""
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))
-            if dev.type == "cuda":
-                t = t.pin_memory().to(dev, non_blocking=True)
-            out[k] = t
+            out[k] = t.pin_memory() if dev.type == "cuda" else t
         return out
+
+    graph = StepGraph(lambda **batch: eval_step(state, batch), dev)
 
     rows = []
     sums, seen = {}, 0
@@ -172,8 +177,7 @@ def main(argv=None):
         nonlocal t0, timed
         if not pending:
             return
-        keys = [k for k, v in results[0].items() if v.dim() > 0]
-        ms = {k: fetch(k) for k in keys}               # one wait for K steps
+        ms = {k: fetch(k) for k in results[0]}         # one wait for K steps
         if t0 is None:  # the first chunk holds the build; clock starts here
             t0 = time.perf_counter()
         else:
@@ -187,7 +191,10 @@ def main(argv=None):
     for batch in loader:
         valids.append(int(batch.pop("valid", cfg.batch_size)))
         pending.append(batch)
-        results.append(eval_step(state, to_device(batch)))
+        # per-item metrics only, copied: the next replay overwrites them
+        results.append({k: v.clone()
+                        for k, v in graph(**to_device(batch)).items()
+                        if v.dim() > 0})
         if len(pending) == K:
             flush()
     flush()

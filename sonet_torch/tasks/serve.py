@@ -1,13 +1,16 @@
 """HTTP model server (port of the JAX package's ``tasks/serve.py``; a
 stdlib-only daemon).
 
-Serves a finished run directory (``config.json`` + ``ckpt/``), restored in
-process on ``--device`` (``cuda`` unless ``cpu`` is asked for), over a
-small JSON/npz HTTP API.  The reference has no serving story at all (its
-closest analogue is re-loading .pth files inside the training code,
-shrec16/test.py:31-32).
+Serves a finished run on ``--device`` (``cuda`` unless ``cpu`` is asked
+for) over a small JSON/npz HTTP API: its exported artifact (``sonet-torch
+export``; loading it needs no model code of this package) or the run
+directory itself (``config.json`` + ``ckpt/``, restored in process).  On
+a card each dispatch replays a captured CUDA graph.  The reference has no
+serving story at all (its closest analogue is re-loading .pth files
+inside the training code, shrec16/test.py:31-32).
 
     sonet-torch serve --run checkpoints/modelnet40 --port 8321
+    sonet-torch serve --artifact checkpoints/modelnet40/export --port 8321
     sonet-torch serve --run ... --microbatch_ms 5
 
 API (the JAX package's routes, codes and bodies):
@@ -32,8 +35,8 @@ Graceful shutdown: SIGTERM/SIGINT puts the daemon into DRAIN mode —
 /healthz flips to 503 {"status": "draining"} (orchestrator readiness
 check), new /v1/predict requests get 503 + Retry-After, in-flight
 requests and the micro-batch queue complete normally, then the listener
-closes and the process exits 0.  See ``drain_server``.  Exported
-artifacts (``--artifact``) and a device mesh are not ported yet.
+closes and the process exits 0.  See ``drain_server``.  A device mesh is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -201,13 +204,14 @@ def main(argv=None):
                                  parents=[device_parser()])
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--run", help="run directory (config.json + ckpt/)")
-    src.add_argument("--artifact", help="exported artifact directory (not "
-                                        "ported yet)")
+    src.add_argument("--artifact", help="exported artifact directory "
+                                        "(sonet-torch export's output)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8321)
     ap.add_argument("--batch_size", type=int, default=None,
-                    help="serving batch size (default: the run's)")
-    ap.add_argument("--checkpoint", default=None)
+                    help="serving batch size (--run only; default: the "
+                         "run's; an artifact's is fixed at export)")
+    ap.add_argument("--checkpoint", default=None, help="--run only")
     ap.add_argument("--mesh_shape", default=None,
                     help="a device mesh, e.g. '4,2' (more than one device "
                          "is not ported yet)")
@@ -231,13 +235,17 @@ def main(argv=None):
     from ..serving import ServingEngine
 
     if args.artifact:
-        raise NotImplementedError(
-            "--artifact: exported artifacts are ROADMAP.md §1 item 13b; "
-            "serve the run directory with --run")
-    refuse_mesh(args.mesh_shape, "serves")
-    engine = ServingEngine.from_run(args.run, batch_size=args.batch_size,
-                                    checkpoint=args.checkpoint,
-                                    device=args.device)
+        if args.batch_size or args.checkpoint or args.mesh_shape:
+            raise SystemExit("--batch_size/--checkpoint/--mesh_shape only "
+                             "apply to --run (an artifact is fixed at "
+                             "export time, on one device)")
+        engine = ServingEngine.from_artifact(args.artifact,
+                                             device=args.device)
+    else:
+        refuse_mesh(args.mesh_shape, "serves")
+        engine = ServingEngine.from_run(args.run, batch_size=args.batch_size,
+                                        checkpoint=args.checkpoint,
+                                        device=args.device)
     if not args.no_warmup:
         engine.warmup()
     if args.microbatch_ms > 0:
@@ -246,7 +254,7 @@ def main(argv=None):
     srv = make_server(engine, host=args.host, port=args.port,
                       quiet=not args.verbose,
                       max_request_mb=args.max_request_mb)
-    print(json.dumps({"serving": args.run,
+    print(json.dumps({"serving": args.artifact or args.run,
                       "task": engine.manifest["task"],
                       "batch_size": engine.batch_size,
                       "device": engine.manifest["device"],

@@ -1,15 +1,26 @@
-"""Captured steps: one step as a CUDA graph, replayed once per row of an
-epoch's index table (the port's counterpart of the JAX package's
-``jax.jit(..., donate_argnums=0)`` step scanned over an epoch by
-``lax.scan``, ``data/device_pipeline.py:make_device_epoch_fns``).
+"""Captured steps: a step as a CUDA graph, the port's counterpart of the
+JAX package's ``jax.jit`` (its train and eval steps, ``train/loops.py``;
+its served forward, ``serving.py``; infer's and retrieval's eval steps)
+and of its epoch scanned by ``lax.scan``
+(``data/device_pipeline.py:make_device_epoch_fns``).
 
-``EpochGraph`` runs ``step(data, idx) -> {metric: tensor}`` for each row
-``idx`` of an (S, B) table.  On a card the step is captured once into a
-``torch.cuda.CUDAGraph`` over static buffers: the table, a row counter
-and an (S, ...) buffer per metric, all on the card.  A replay reads the
-row the counter names, runs the step, writes its metrics into that row
-of the buffers and advances the counter, so an epoch is S replays and one
-fetch of the metrics.  On the CPU the same step runs eagerly, row by row.
+Two holders share one warm-up and capture (``_warm_up``, ``_capture``):
+
+* ``StepGraph`` runs ``fn(*args, **kwargs) -> outputs`` with its inputs
+  copied into static buffers on the card, one graph per input signature
+  (names, shapes and dtypes), all of one holder in one memory pool.  A
+  call copies its tensors into the buffers on the current stream and
+  replays; it returns the graph's own output buffers, which the next
+  replay overwrites, so a caller reads or clones them first.  The served forward, the host and
+  native pipelines' train and eval steps, infer and retrieval run so.
+* ``EpochGraph`` runs ``step(data, idx) -> {metric: tensor}`` for each
+  row ``idx`` of an (S, B) table: the table, a row counter and an
+  (S, ...) buffer per metric live on the card; a replay reads the row the
+  counter names, runs the step, writes its metrics into that row of the
+  buffers and advances the counter, so an epoch is S replays and one
+  fetch of the metrics.  The device pipeline runs so.
+
+On the CPU both run the same function eagerly.
 
 What a graph freezes at capture, and how each is kept right:
 
@@ -32,7 +43,7 @@ capture raises; nothing falls back to eager replay on a card.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, Optional, Sequence
+from typing import Any, Callable, Dict, Hashable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -42,6 +53,133 @@ Step = Callable[[object, torch.Tensor], Dict[str, torch.Tensor]]
 
 def _no_snapshot():
     return lambda: None
+
+
+def _warm_up(warm: Callable[[], Any], device: torch.device,
+             generators: Sequence[torch.Generator],
+             snapshot: Callable[[], Callable[[], None]]):
+    """Run ``warm()`` once eagerly on a side stream, then put the state and
+    the generators back.  Returns (what ``warm`` returned, the restore
+    function of the state as it was)."""
+    gen_states = [g.get_state() for g in generators]
+    restore = snapshot()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        warmed = warm()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    restore()
+    for g, s in zip(generators, gen_states):
+        g.set_state(s)
+    return warmed, restore
+
+
+def _capture(body: Callable[[], Any], generators: Sequence[torch.Generator],
+             restore: Callable[[], None], pool=None):
+    """Capture ``body()`` into a new graph (in ``pool`` when one is given)
+    with ``generators`` registered; ``restore`` puts back the Python-side
+    changes made while capturing.  Returns (graph, what ``body``
+    returned)."""
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        if g.device.type == "cuda":
+            graph.register_generator_state(g)
+    # thread_local: a loader or chunk-staging thread may pin memory and
+    # copy on its own stream meanwhile
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        captured = body()
+    restore()
+    return graph, captured
+
+
+class StepGraph:
+    """Call ``fn(*args, **kwargs)`` as a captured CUDA graph over static
+    input buffers, one graph per input signature: the positional inputs'
+    shapes and dtypes, and the keyword inputs' names, shapes and dtypes,
+    so a dict batch (``graph(**batch)``) binds each buffer to its name
+    whatever the dict's order.
+
+    ``generators``, ``key``, ``snapshot`` and ``on_replay`` are as for
+    ``EpochGraph``.  ``captures`` and ``replays`` count what happened.
+    The inputs are tensors (on the host, pinned for an asynchronous copy,
+    or on the card); the outputs are tensors, or a dict, tuple or list of
+    them, owned by the graph until the next call."""
+
+    def __init__(self, fn: Callable[..., Any], device: torch.device, *,
+                 generators: Sequence[torch.Generator] = (),
+                 key: Callable[[], Hashable] = lambda: None,
+                 snapshot: Callable[[], Callable[[], None]] = _no_snapshot,
+                 on_replay: Callable[[], None] = lambda: None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.generators = tuple(generators)
+        self.key = key
+        self.snapshot = snapshot
+        self.on_replay = on_replay
+        self.captures = 0
+        self.replays = 0
+        # signature -> (graph, static args, static kwargs, outputs, key)
+        self._graphs: Dict[tuple, tuple] = {}
+        self._pool = None
+
+    def _capture(self, sig: tuple, args, kwargs, key) -> tuple:
+        dev = self.device
+        old = self._graphs.pop(sig, None)
+        if old is not None:
+            old[0].reset()
+        del old
+        if not self._graphs:
+            # a pool that no live graph holds takes no new capture (its
+            # blocks may still back tensors, such as gradients, of the
+            # graph just reset): start another
+            self._pool = torch.cuda.graph_pool_handle()
+
+        def empty(t):
+            return torch.empty(t.shape, dtype=t.dtype, device=dev)
+        with torch.inference_mode(False):    # written in place by every call
+            s_args = [empty(t) for t in args]
+            s_kwargs = {k: empty(t) for k, t in kwargs.items()}
+        _fill(s_args, s_kwargs, args, kwargs)  # the warm-up reads real values
+        _, restore = _warm_up(lambda: self.fn(*s_args, **s_kwargs), dev,
+                              self.generators, self.snapshot)
+        graph, out = _capture(lambda: self.fn(*s_args, **s_kwargs),
+                              self.generators, restore, self._pool)
+        entry = self._graphs[sig] = (graph, s_args, s_kwargs, out, key)
+        self.captures += 1
+        return entry
+
+    def __call__(self, *args: torch.Tensor, **kwargs: torch.Tensor):
+        if self.device.type != "cuda":
+            return self.fn(*args, **kwargs)
+        sig = (tuple((tuple(t.shape), t.dtype) for t in args),
+               tuple(sorted((k, tuple(t.shape), t.dtype)
+                            for k, t in kwargs.items())))
+        key = self.key()
+        entry = self._graphs.get(sig)
+        if entry is None or entry[4] != key:
+            entry = self._capture(sig, args, kwargs, key)
+        graph, s_args, s_kwargs, out, _ = entry
+        _fill(s_args, s_kwargs, args, kwargs)
+        graph.replay()
+        self.replays += 1
+        self.on_replay()
+        return out
+
+    def reset(self) -> None:
+        """Drop every captured graph (the next call captures anew)."""
+        for graph, *_ in self._graphs.values():
+            graph.reset()
+        self._graphs.clear()
+
+
+def _fill(s_args, s_kwargs, args, kwargs) -> None:
+    """Copy the inputs into a graph's static buffers, on the current
+    stream."""
+    for s, t in zip(s_args, args):
+        s.copy_(t, non_blocking=True)
+    for k, s in s_kwargs.items():
+        s.copy_(kwargs[k], non_blocking=True)
 
 
 class EpochGraph:
@@ -92,34 +230,19 @@ class EpochGraph:
     def _capture(self, data, key) -> None:
         dev = self.device
         self.reset()
-        gen_states = [g.get_state() for g in self.generators]
-        restore = self.snapshot()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+
+        def warm():
             m = self.step(data, self._table[0])
-            shapes = {k: (v.shape, v.dtype) for k, v in m.items()}
-            del m
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        restore()
-        for g, s in zip(self.generators, gen_states):
-            g.set_state(s)
+            return {k: (v.shape, v.dtype) for k, v in m.items()}
+
+        shapes, restore = _warm_up(warm, dev, self.generators, self.snapshot)
         if {k: (v.shape[1:], v.dtype) for k, v in self._out.items()} != shapes:
             cap = self._table.shape[0]
             self._out = {k: torch.zeros((cap,) + tuple(s), dtype=dt,
                                         device=dev)
                          for k, (s, dt) in shapes.items()}
-        graph = torch.cuda.CUDAGraph()
-        for g in self.generators:
-            if g.device.type == "cuda":
-                graph.register_generator_state(g)
-        # thread_local: a chunk-staging thread may pin memory and copy on
-        # its own stream meanwhile
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-            self._body(data)
-        restore()          # Python-side changes made while capturing
-        self._graph = graph
+        self._graph, _ = _capture(lambda: self._body(data), self.generators,
+                                  restore)
         self.captures += 1
         self.captured_key = key
         self._bound = (self._addresses(data), key)

@@ -19,10 +19,16 @@ autoencoder/train.py):
   same in C++ threads (``data/native_loader.py``, the ModelNet, SHREC and
   ShapeNetPart layouts); ``device`` keeps the raw split on the device
   (``data/device_pipeline.py``; chunked above ``device_budget_gb``) and
-  samples and augments inside the step, which on a card is a captured
-  CUDA graph replayed once per row of the epoch's index table
-  (``train/graphs.py``), its metrics fetched once an epoch.  Device epochs
-  stop at the epoch boundary, host epochs after the step.
+  samples and augments inside the step.  Device epochs stop at the epoch
+  boundary, host epochs after the step.
+
+On a card every train and eval step is a captured CUDA graph
+(``train/graphs.py``), as every step of the JAX package is a jitted
+program: the host and native pipelines' steps are ``StepGraph``s, each
+batch copied from pinned memory into the graph's static buffers on the
+compute stream and one replay a batch; the device pipeline's are
+``EpochGraph``s, replayed once per row of the epoch's index table, their
+metrics fetched once an epoch.  On the CPU the same steps run eagerly.
 
 The JAX package's mesh and its multi-process runs are not ported yet;
 asking for them raises ``NotImplementedError`` naming the ``ROADMAP.md``
@@ -44,7 +50,7 @@ from ..data.pipeline import BatchLoader
 from ..device import refuse_mesh, resolve_device
 from ..utils.logging import MetricLogger
 from . import checkpoints
-from .graphs import EpochGraph
+from .graphs import EpochGraph, StepGraph
 from .loops import make_steps
 from .state import init_state, set_capturable
 
@@ -167,12 +173,17 @@ class Trainer:
         self.generator = torch.Generator(device=self.device).manual_seed(
             cfg.seed + 1)
         self.device_train = self.device_eval = None
+        self._keys: Dict[int, tuple] = {}
         if cfg.input_pipeline == "device":
             self._init_device_pipeline()
+        else:
+            self.train_graph = StepGraph(
+                self._host_train_step, self.device,
+                generators=(self.generator,), key=self._step_key,
+                snapshot=self._snapshot, on_replay=self._advance)
+            self.eval_graph = StepGraph(self._host_eval_step, self.device)
         # a captured step needs Adam's step counters on the card
-        set_capturable(self.state.optimizer,
-                       self.device_train is not None
-                       and self.device.type == "cuda")
+        set_capturable(self.state.optimizer, self.device.type == "cuda")
         self.best_metric = None
         self._stop_requested = False
 
@@ -214,7 +225,6 @@ class Trainer:
         # eval draws (the subsample) restart from one seed every evaluate,
         # so the same split evaluates to the same bits
         self.eval_generator = torch.Generator(device=self.device)
-        self._keys: Dict[int, tuple] = {}
         self.train_graph = EpochGraph(
             self._device_train_step, self.device,
             generators=(self.generator,), key=self._step_key,
@@ -237,6 +247,13 @@ class Trainer:
         # per-item columns and scalars only: what evaluate() reads
         return {k: v for k, v in m.items()
                 if k.endswith("_i") or v.dim() == 0}
+
+    def _host_train_step(self, **batch):
+        _, metrics = self.train_step(self.state, batch, self.generator)
+        return metrics
+
+    def _host_eval_step(self, **batch):
+        return self.eval_step(self.state, batch)
 
     def _step_key(self) -> tuple:
         """What a captured train step reads from Python: each group's
@@ -323,31 +340,35 @@ class Trainer:
             yield data, table, valids
 
     # ------------------------------------------------------------------
-    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """Host arrays -> tensors on the device.  On a card the host side is
-        pinned and the copy asynchronous, on the calling thread's stream."""
+    def _pinned_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """Host arrays -> tensors for a step: pinned on a card, whose
+        captured step copies them into its static buffers asynchronously,
+        on the compute stream, so the next batch's copy cannot overwrite a
+        buffer that a running replay still reads."""
         out = {}
         for k, v in batch.items():
             if k == "valid":
                 continue
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
+                t = t.pin_memory()
             out[k] = t
         return out
 
     def _device_batches(self, loader):
-        """Yield ``(device batch, valid)`` for ``loader``.  The loader's
-        threads read and augment ahead of the step (the reference relies
-        on DataLoader workers for this, modelnet/train.py:25); the copy
-        from pinned memory is asynchronous to the host and ordered before
-        the step on the current stream, so copying a batch ahead would
-        only hold back the launch of the step before it.  A loader error
-        reaches the consumer; a consumer that stops early closes the
-        loader's iterator, which stops its threads."""
+        """Yield ``(batch, valid)`` for ``loader``.  The loader's threads
+        read and augment ahead of the step (the reference relies on
+        DataLoader workers for this, modelnet/train.py:25); the copy from
+        pinned memory is asynchronous to the host and ordered before the
+        step's replay on the current stream, so copying a batch ahead
+        would only hold back the replay before it.  Every batch has the
+        same shape (the last eval batch is padded), so one graph covers
+        an epoch.  A loader error reaches the consumer; a consumer that
+        stops early closes the loader's iterator, which stops its
+        threads."""
         for batch in loader:
             valid = int(batch.pop("valid", self.cfg.batch_size))
-            yield self._device_batch(batch), valid
+            yield self._pinned_batch(batch), valid
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One pass over the training split; the last step's metrics and
@@ -359,8 +380,7 @@ class Trainer:
         metrics = None
         steps = 0
         for i, (db, _valid) in enumerate(self._device_batches(self.train_loader)):
-            self.state, metrics = self.train_step(self.state, db,
-                                                  self.generator)
+            metrics = self.train_graph(**db)
             steps += 1
             if i % self.log_every == 0:
                 self.logger.log(self.state.step,
@@ -395,12 +415,13 @@ class Trainer:
         return last
 
     def _eval_batches(self):
-        """``(device batch or None, metrics, valid)`` per eval batch: the
-        host loader's batches through ``eval_step``, or the device
+        """``(batch or None, metrics, valid)`` per eval batch: the host
+        loader's batches through the eval step (on a card the metrics are
+        the graph's buffers, good until the next batch), or the device
         pipeline's rows, whose metrics arrive stacked, once a part."""
         if self.device_eval is None:
             for db, valid in self._device_batches(self.test_loader):
-                yield db, self.eval_step(self.state, db), valid
+                yield db, self.eval_graph(**db), valid
             return
         self.eval_generator.manual_seed(self.cfg.seed)
         for dd, table, valids in self._device_splits(self.device_eval,
@@ -412,8 +433,11 @@ class Trainer:
 
     def evaluate(self, visualize: bool = False) -> Dict[str, float]:
         """Eval over the test split (``val`` for SHREC), each per-item
-        metric averaged over the valid items (modelnet/train.py:78-90)."""
-        sums: Dict[str, float] = {}
+        metric averaged over the valid items (modelnet/train.py:78-90).
+        Each batch's sums (float32) are added up in float64 where the
+        metrics lie, before the next batch's step overwrites them, and
+        fetched once."""
+        sums: Dict[str, torch.Tensor] = {}
         count = 0
         first = True
         for db, m, valid in self._eval_batches():
@@ -426,9 +450,10 @@ class Trainer:
                     name = _EVAL_NAMES.get(k, k[:-2])
                     if self.cfg.task == "segment" and k == "correct_i":
                         name = "seg_accuracy"
-                    total = float(v[:valid].float().sum())
-                    sums[name] = sums.get(name, 0.0) + total
-        return {k: v / max(count, 1) for k, v in sums.items()}
+                    total = v[:valid].float().sum().double()
+                    sums[name] = (sums[name] + total if name in sums
+                                  else total)
+        return {k: float(v) / max(count, 1) for k, v in sums.items()}
 
     def _save_visuals(self, batch, metrics) -> None:
         """Eval-time pictures (the reference's per-epoch visdom displays:

@@ -591,8 +591,11 @@ def test_trainer_on_card(cuda_device, tmp_path):
     assert t.train_set.som_node.shape == (64, 16, 3)
     before = smw.windowed_vals.launches
     metrics = t.fit(epochs=1)
-    # one launch a train step and an eval batch (16 + 4)
-    assert smw.windowed_vals.launches - before == 20
+    # captured steps: a warm-up and a capture of the train step and of the
+    # eval step, then a replay a train step and an eval batch (16 + 4)
+    assert smw.windowed_vals.launches - before == 4
+    assert (t.train_graph.replays, t.eval_graph.replays) == (16, 4)
+    assert t.evaluate() == t.evaluate() == metrics
     assert t.state.step == 16 and np.isfinite(metrics["loss"])
     assert all(p.is_cuda for p in t.model.parameters())
     t.request_stop()
@@ -602,7 +605,7 @@ def test_trainer_on_card(cuda_device, tmp_path):
     a, b = t.model.state_dict(), t2.model.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     scores, labels, ids = retrieval.extract_scores(
-        t.eval_step, t.state, t.test_loader, t._device_batch)
+        t.eval_step, t.state, t.test_loader, t._pinned_batch)
     assert scores.shape == (16, cfg.classes) and np.isfinite(scores).all()
 
 
@@ -702,7 +705,8 @@ def test_device_pipeline_trainer_on_card(cuda_device, tmp_path):
     host = Trainer(t.cfg.replace(input_pipeline="host"), quiet=True,
                    device=cuda_device)
     assert host.state.step == 16
-    assert not any(g["capturable"] for g in host.state.optimizer.param_groups)
+    # every pipeline's steps are captured on a card
+    assert all(g["capturable"] for g in host.state.optimizer.param_groups)
     a, b = t.model.state_dict(), host.model.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     sa, sb = t.state.optimizer.state, host.state.optimizer.state
@@ -723,3 +727,157 @@ def test_device_pipeline_trainer_on_card(cuda_device, tmp_path):
         tr.train_epoch(0)
     a, b = chunked.model.state_dict(), resident.model.state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+# ---------------------------------------------------------------------------
+# the host pipeline's captured steps, the captured served forward, the
+# registered operator and exported artifacts
+# ---------------------------------------------------------------------------
+
+def _host_trainer(tmp_path, device, name, **over):
+    from sonet_torch.train.trainer import Trainer
+    cfg = config.tiny_test().replace(
+        checkpoints_dir=str(tmp_path), name=name,
+        random_pc_dropout_lower_limit=0.8, **over)
+    return Trainer(cfg, quiet=True, resume=False, device=device)
+
+
+def test_host_captured_train_step_equals_eager(cuda_device, tmp_path):
+    """The host pipeline's replay of a batch runs the eager step's kernels
+    on the same inputs and generator state (float32 here)."""
+    t = _host_trainer(tmp_path, cuda_device, "hostcap")
+    assert all(g["capturable"] for g in t.state.optimizer.param_groups)
+    batch = next(iter(t.train_loader))
+    eager, graph, rel = chip_smoke.captured_and_eager_host_step(t, batch)
+    assert t.train_graph.captures == 1 and t.train_graph.replays == 1
+    assert graph == pytest.approx(eager, rel=1e-5, abs=1e-6)
+    assert rel < 1e-3
+
+
+def test_host_captured_step_follows_the_epoch(cuda_device, tmp_path):
+    """lr halves and the BatchNorm momentum decays every epoch: the host
+    pipeline's step is captured again for each epoch's values."""
+    t = _host_trainer(tmp_path, cuda_device, "hostepochs", lr_decay_step=1,
+                      bn_momentum_decay_step=1)
+    for epoch in range(2):
+        t.train_epoch(epoch)
+    assert t.train_graph.captures == 2
+    assert t.train_graph.replays == 2 * t.steps_per_epoch
+    batch = next(iter(t.train_loader))
+    eager, graph, rel = chip_smoke.captured_and_eager_host_step(t, batch)
+    assert t.train_graph.captures == 3
+    keys = [t._keys[e] for e in range(3)]
+    assert keys[2] != keys[1] != keys[0]
+    assert keys[2][0] == tuple(t.cfg.lr / 2 for _ in keys[2][0])
+    assert graph == pytest.approx(eager, rel=1e-5, abs=1e-6)
+    assert rel < 1e-3
+
+
+def test_captured_served_forward_equals_eager(cuda_device):
+    from sonet_torch.serving import ServingEngine, build_serve_fn
+    cfg = config.tiny_test()
+    model = build_model(cfg, device=cuda_device, seed=0)
+    engine = ServingEngine.from_model(model, cfg, device=cuda_device)
+    before = smw.windowed_vals.launches
+    engine.warmup()
+    assert engine.graph.captures == 1
+    # the warm-up step and the capture; a replay launches nothing
+    assert smw.windowed_vals.launches - before == 2
+    rs = np.random.RandomState(0)
+    x = {i["name"]: rs.randn(11, *i["shape"][1:]).astype(i["dtype"])
+         for i in engine.manifest["inputs"]}
+    replays = engine.graph.replays
+    got = engine.predict(x)
+    B = engine.batch_size
+    assert engine.graph.replays - replays == -(-11 // B)   # the last padded
+    assert smw.windowed_vals.launches - before == 2
+    serve = build_serve_fn(model, cfg)
+    want = serve(*(torch.from_numpy(x[n][:B]).to(cuda_device)
+                   for n in engine.input_names)).float().cpu().numpy()
+    # the same kernels on the same inputs
+    np.testing.assert_array_equal(got[:B], want)
+
+
+def test_windowed_vals_op_equals_the_ctypes_launch(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    data = torch.randn((2, 3000, 384), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    ids = torch.sort(torch.randint(0, 64, (2, 3000), generator=gen,
+                                   device=cuda_device, dtype=torch.int32),
+                     dim=1).values
+    out = torch.empty((2, 64, 384), dtype=torch.float32, device=cuda_device)
+    err = smw._kernel()(data.data_ptr(), 1, ids.data_ptr(), out.data_ptr(),
+                        2, 3000, 384, 64, cuda_device.index or 0,
+                        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    before = smw.windowed_vals.launches
+    got = torch.ops.sonet_torch.windowed_vals(data, ids, 64)
+    torch.cuda.synchronize()
+    assert smw.windowed_vals.launches == before + 1
+    assert bool((got == out).all())
+
+
+def _small_run(tmp_path, device):
+    """A float32 ``tiny_test`` run written from ``device``: (its directory,
+    its configuration)."""
+    cfg = config.tiny_test().replace(compute_dtype="float32")
+    run = tmp_path / "run"
+    run.mkdir()
+    cfg.save(str(run / "config.json"))
+    state = train.init_state(cfg, device=device, seed=1)
+    train.save_checkpoint(str(run / "ckpt"), state, 1)
+    return run, cfg
+
+
+def test_cuda_export_replays_as_from_model(cuda_device, tmp_path):
+    """A cuda export of a small run keeps the operator, loads with it, and
+    answers as ``from_run`` does through one captured graph a bucket."""
+    from sonet_torch.serving import ServingEngine, export_run
+    run, cfg = _small_run(tmp_path, cuda_device)
+    out = str(tmp_path / "art")
+    manifest = export_run(str(run), out_dir=out, device=cuda_device,
+                          poly_batch=True)
+    assert manifest["buckets"] == [1, 2, 4]
+    assert manifest["pooling"] == "sorted_window"
+    engine = ServingEngine.from_artifact(out, device=cuda_device)
+    engine.warmup()
+    assert engine.graph.captures == len(manifest["buckets"])
+    ref = ServingEngine.from_run(str(run), device=cuda_device)
+    rs = np.random.RandomState(0)
+    x = {i["name"]: rs.randn(cfg.batch_size, *i["shape"][1:]).astype(
+        i["dtype"]) for i in ref.manifest["inputs"]}
+    got, want = engine.predict(x), ref.predict(x)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("form", ["cuda", "portable"])
+def test_cpu_stored_export_moves_onto_the_card(cuda_device, tmp_path, form):
+    """An artifact whose program lies on the CPU (a ``cuda`` export traced
+    on the CPU, keeping the operator; a portable symbolic one, which is
+    always stored on the CPU) is moved onto the card by ``load_exported``
+    and answers as ``from_run`` on the same pooling.  On a card a symbolic
+    artifact's warm-up captures every size the micro-batcher fills."""
+    from sonet_torch.serving import ServingEngine, _restore_run, export_run
+    run, cfg = _small_run(tmp_path, cuda_device)
+    out = str(tmp_path / "art")
+    if form == "cuda":
+        manifest = export_run(str(run), out_dir=out, device="cpu",
+                              platforms=["cuda"])
+    else:
+        manifest = export_run(str(run), out_dir=out, device=cuda_device,
+                              platforms=["cpu", "cuda"], poly_batch=True)
+    program = torch.export.load(os.path.join(out, "model.pt2"))
+    assert {t.device.type for t in program.state_dict.values()} == {"cpu"}
+    pooling = "sorted_window" if form == "cuda" else "scatter"
+    assert manifest["pooling"] == pooling
+    engine = ServingEngine.from_artifact(out, device=cuda_device)
+    engine.warmup()
+    assert engine.graph.captures == (1 if form == "cuda" else 4)
+    rcfg, model, _, _ = _restore_run(str(run), device=cuda_device,
+                                     pooling=pooling)
+    ref = ServingEngine.from_model(model, rcfg, device=cuda_device)
+    rs = np.random.RandomState(0)
+    x = {i["name"]: rs.randn(cfg.batch_size, *i["shape"][1:]).astype(
+        i["dtype"]) for i in ref.manifest["inputs"]}
+    got, want = engine.predict(x), ref.predict(x)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

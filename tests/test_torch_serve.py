@@ -515,16 +515,23 @@ def test_the_jax_daemon_answers_the_same_codes_on_a_stub():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags,item", [
-    (["--artifact", "export"], "13b"),
     (["--mesh_shape", "2"], "item 12"),
     (["--mesh_shape", "4,2"], "item 12"),
 ])
 def test_unported_flags_raise(run_dir, flags, item):
-    argv = ["--device", "cpu", "--port", "0"] + flags
-    if "--artifact" not in flags:
-        argv += ["--run", run_dir]
+    argv = ["--device", "cpu", "--port", "0", "--run", run_dir] + flags
     with pytest.raises(NotImplementedError, match=item):
         tserve.main(argv)
+
+
+@pytest.mark.parametrize("flags", [["--batch_size", "2"],
+                                   ["--checkpoint", "x.pt"],
+                                   ["--mesh_shape", "2"]])
+def test_artifact_refuses_run_flags(flags):
+    # as the JAX daemon does: an artifact is fixed at export time
+    with pytest.raises(SystemExit, match="only apply to --run"):
+        tserve.main(["--device", "cpu", "--port", "0", "--artifact",
+                     "export"] + flags)
 
 
 def test_serve_defaults_to_cuda(run_dir, monkeypatch):

@@ -240,7 +240,7 @@ class TestImportBoundary:
                 "sonet_torch.tasks.infer, sonet_torch.tasks.reproduce, "
                 "sonet_torch.tasks.serve, sonet_torch.data.device_pipeline, "
                 "sonet_torch.data.native_loader, sonet_torch.native, "
-                "sonet_torch.train.graphs\n"
+                "sonet_torch.train.graphs, sonet_torch.tasks.export\n"
                 "bad = [m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'jaxlib', 'flax', 'optax', 'sonet_tpu', 'h5py')]\n"
                 "print(bad); sys.exit(1 if bad else 0)")

@@ -8,15 +8,19 @@ Builds ``train.Trainer`` for ``config.modelnet40()`` on the synthetic
 dataset (320 train clouds, nodes fitted on the card, point dropout from
 0.8).  Each round times, for one epoch of 40 batches: the host loader
 alone (``BatchLoader``: reads, augmentation, collation on its threads);
-the train step alone, repeated on one batch already on the card; and the
-whole ``train_epoch`` in three set-ups, in the order A B C C B A so that
-a drift of the host's speed falls on each alike:
+the train step alone, the captured step (``Trainer.train_graph``)
+replayed on one batch already on the card; and the whole ``train_epoch``
+in three set-ups, in the order A B C C B A so that a drift of the host's
+speed falls on each alike:
 
-* A: 4 loader threads (``BatchLoader``'s default), each batch copied
-  from pinned memory on the launching thread (``Trainer._device_batches``);
+* A: 4 loader threads (``BatchLoader``'s default), each batch pinned on
+  the launching thread (``Trainer._device_batches``) and copied into the
+  captured step's static buffers on the compute stream;
 * B: 1 loader thread, copied the same way;
-* C: 4 loader threads, each batch copied on a thread of its own on a
-  side stream, two batches ahead, the step's stream waiting on an event.
+* C: 4 loader threads, each batch copied to the card on a thread of its
+  own on a side stream, two batches ahead, the step's stream waiting on
+  an event; the captured step then copies it card to card into its
+  buffers.
 
 Each time is the host clock around work that ends in
 ``torch.cuda.synchronize()``, per batch.  Prints the card's name and
@@ -37,8 +41,8 @@ import time
 
 
 def copy_thread_batches(trainer, loader, depth: int = 2):
-    """Set-up C: ``(device batch, valid)`` for ``loader``, copied on a
-    background thread on a stream of its own ``depth`` batches ahead; the
+    """Set-up C: ``(batch on the card, valid)`` for ``loader``, copied on
+    a background thread on a stream of its own ``depth`` batches ahead; the
     consumer's stream waits for each batch's event, and each tensor is
     marked as used there so that its memory is not reused too early."""
     import torch
@@ -60,8 +64,10 @@ def copy_thread_batches(trainer, loader, depth: int = 2):
         try:
             for batch in loader:
                 valid = int(batch.pop("valid", trainer.cfg.batch_size))
+                pinned = trainer._pinned_batch(batch)
                 with torch.cuda.stream(stream):
-                    db = trainer._device_batch(batch)
+                    db = {k: v.to(trainer.device, non_blocking=True)
+                          for k, v in pinned.items()}
                     event = torch.cuda.Event()
                     event.record(stream)
                 if not put((db, valid, event)):
@@ -116,7 +122,8 @@ def main(argv=None) -> int:
         t = Trainer(cfg, quiet=True, resume=False, device="cuda")
         n = t.steps_per_epoch
         plain = t._device_batches
-        batch = next(iter(plain(t.train_loader)))[0]
+        batch = {k: v.to(t.device) for k, v in
+                 next(iter(plain(t.train_loader)))[0].items()}
 
         def setup(threads, copies):
             def run():
@@ -132,7 +139,7 @@ def main(argv=None) -> int:
 
         def steps():
             for _ in range(n):
-                t.train_step(t.state, batch, t.generator)
+                t.train_graph(**batch)
 
         setups = {
             "A: 4 loader threads": setup(4, plain),
