@@ -21,7 +21,8 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    classifier's (8, 1536, 384) with M=25 (ids from a real top-k
    assignment of fabricated digits to nodes fitted on the card), and at
    the bucketed artifact's (B, 15000, 384) for B = 1, 2, 4 (each equal to
-   those rows of the B=8 call); each of its
+   those rows of the B=8 call), and at the per-rank shapes of the mesh
+   phases, (4, 15000, 384) and (8, 7500, 384); each of its
    cases must take the kernel (bulk or direct) that its shape and
    alignment name.  Kernel 2 (``segment_argmax``) is on no
    path of the model and is held here only, also against kernel 1's
@@ -165,10 +166,54 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    engine; ``make_server`` on the artifact answers 16 concurrent B'=1
    requests and ``sonet-torch serve --artifact``, as a process, one;
    bytes and export times;
-22. kernel 1's calls by shape over every phase after 3, and a JSON line
-   of every kernel with its launches on each of the sixteen paths beside
-   its graph replays there, error and times;
-23. last line: {"ok": true, "device": {...}}.
+22. mesh: ``config.modelnet40()`` on two ranks of the one card, launched
+   as a user launches them (``python -m torch.distributed.run
+   --standalone --nproc_per_node 2``; this script's ``--mesh_steps``
+   mode), ``--device cuda:0``: the ranks share the card, so their group
+   runs over gloo and every step eagerly.  First kernel 1 under (1, 2)
+   at (8, 7500, 384) a rank: the kernel and the all-reduce MAX `==` the
+   plain version with the same all-reduce, and `==` the kernel on the
+   whole clouds.  On meshes (2, 1) and (1, 2)
+   kernel 1 is launched once a step on each rank at (4, 15000, 384) and
+   (8, 7500, 384), M=64, counted in the ranks from 0; the first train
+   step's loss within 2% of the one-process step from the same weights
+   and batch (bf16), ten steps finite and falling on one batch, each
+   timed with its gloo collectives apart; then the same first step in
+   float32, its loss within ``MESH_F32_LOSS_RTOL``, its gradients and
+   update within ``MESH_GRAD_RTOL`` and ``MESH_UPDATE_RTOL`` of one
+   process's by the relative norm of the difference (in bf16 the train-mode gradients move by ~25% under the
+   statistics' other order, and Adam's first step with their signs:
+   ``MESH_UPDATE_DTYPE``), read beside one process's step from weights
+   one rounding away (``NUDGE``); under (1, 2) a planted fault, node-level
+   gradients summed over ``points``, must fail the gradient gate; every
+   rank counts both kernels' launches and the graph replays from 0 around
+   its main path.  Beside phase 25, a world of
+   one over NCCL (``--mesh_nccl``, ``--device cuda``): the train step
+   over its (1, 1) mesh, gradients and metrics all-reduced by NCCL inside
+   the graph, captured, and one replay `==` the captured step over no
+   mesh;
+23. mesh_segment: phase 22's (1, 2) step at ``config.shapenetpart()``
+   width;
+24. mesh_autoencode: the same at ``config.autoencoder()`` width, with the
+   Chamfer pairs whose nearest point moves, over the mesh and from the
+   nudged weights, counted against one process's;
+25. mesh_trainer: ``sonet-torch classify --distributed auto --device
+   cuda:0`` on two ranks over the "reproduce" tree (this script's
+   ``--rank_cli`` mode counts each rank's launches around ``cli.main``):
+   the host pipeline for two epochs, a SIGTERM to rank 1 alone once
+   epoch 0's eval is logged stopping both ranks in epoch 1 with one
+   checkpoint, the run directory written once (by rank 0: every record
+   once), the run restored in one process bit for bit; the device
+   pipeline for one epoch with the train split sharded over the two
+   ranks; ``sonet-torch infer --mesh_shape 2 --dump_arrays`` on the
+   run against one process's ``infer``: the accuracy equal, the loss
+   within 2%, the same rows, each item's class scores within the bf16
+   rule and its predicted class the same wherever the two best scores
+   are further apart than that;
+26. kernel 1's calls by shape over every phase after 3, and a JSON line
+   of every kernel with its launches on each of the twenty-one paths
+   beside its graph replays there, error and times;
+27. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
 and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
@@ -601,6 +646,8 @@ def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
     ids_empty[ids_empty == 3] = 2                 # node 3 empty; 14..19 empty
     ids64 = _flagship_ids(torch, 64, kN // 3, M, 3, gen, dev)
     ids_seg = _flagship_ids(torch, B, 1024, M, 3, gen, dev)      # (8, 3072)
+    # a rank of a (1, 2) mesh sorts its own half of the stacked points
+    ids_half = _flagship_ids(torch, B, kN // 6, M, 3, gen, dev)  # (8, 7500)
     cases = [
         ("flagship bf16 sorted", rand((B, kN, C), torch.bfloat16), ids, M,
          "bulk"),
@@ -612,6 +659,8 @@ def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
          ids_seg, M, "bulk"),
         ("MNIST classifier bf16 sorted, M=25",
          rand((B, 1536, C), torch.bfloat16), ids_mnist, 25, "bulk"),
+        ("a rank of a (1, 2) mesh bf16 sorted",
+         rand((B, kN // 2, C), torch.bfloat16), ids_half, M, "bulk"),
         ("unsorted f32", rand((2, 1000, 96), torch.float32), ids_small, 16,
          "bulk"),
         ("ragged N=1001, odd C=33, bf16",
@@ -658,6 +707,15 @@ def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
             raise AssertionError(f"segment_max_window at B={b} differs from "
                                  f"the B=8 call's rows")
         t_buckets[b] = _time_kernel1(torch, data[:b], ids[:b], M)
+    # the per-rank shapes of the mesh phases: a rank of (2, 1) holds 4
+    # clouds (the B=4 rows above), a rank of (1, 2) half of each cloud's
+    # stacked points; the rule-2 watch reads their share of the bound
+    t_mesh = {"4x15000": t_buckets[4],
+              "8x7500": _time_kernel1(torch, cases[5][1], ids_half, M)}
+    for shape, tm in t_mesh.items():
+        log(f"segment_max_window per rank of a mesh, {shape}: "
+            f"{tm['bound_ms'] / tm['graph_ms']:.1%} of its bound by graph "
+            f"replay")
     host_us = host_us_per_call(lambda: windowed_vals(data, ids, M))
     base = torch.empty((B, M, C), dtype=data.dtype, device=dev)
     idx = ids.long()[..., None].expand(B, kN, C).contiguous()
@@ -693,7 +751,13 @@ def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
             "bucket_main_device_ms": {b: t["main_ms"]
                                       for b, t in t_buckets.items()},
             "bucket_bound_ms": {b: t["bound_ms"]
-                                for b, t in t_buckets.items()}}
+                                for b, t in t_buckets.items()},
+            "mesh_rank_graph_ms": {s: t["graph_ms"]
+                                   for s, t in t_mesh.items()},
+            "mesh_rank_main_device_ms": {s: t["main_ms"]
+                                         for s, t in t_mesh.items()},
+            "mesh_rank_bound_ms": {s: t["bound_ms"]
+                                   for s, t in t_mesh.items()}}
 
 
 def _check_segment_argmax(torch, gen, ids, M):
@@ -3079,7 +3143,839 @@ def profile_run(fn, out_dir, what):
             f"{e.count // 5:4d}x  {e.key[:100]}")
 
 
+# ---------------------------------------------------------------------------
+# the mesh phases: ranks launched as a user launches them, with torchrun
+# ---------------------------------------------------------------------------
+
+# the one card, named: its ranks share it, so their group runs over gloo
+# (parallel/distributed.py's backend rule); a world of one on "cuda" takes
+# NCCL
+MESH_DEVICE = "cuda:0"
+MESH_RANKS = 2
+# a (data, points) step against the one-process step from the same
+# weights and batch: the loss within 2% (the bf16 rule: the mesh sums the
+# BatchNorm statistics and cluster sums in another order, which moves bf16
+# roundings by a few ulp)
+MESH_LOSS_RTOL = 2e-2
+# ... and its gradients and update not in bf16: there the statistics
+# summed in another order move nearly tied bf16 pooling winners and
+# ReLUs, and the train-mode gradients with them by ~25% (as kernel
+# against scatter pooling does, GRAD_POOL_CASES), and Adam's first step,
+# about +-lr an entry by the sign of its gradient, follows: over (2, 1)
+# the bf16 gradients read 2.65e-1 and the update 9.5e-2 of one process's
+# while the loss read 6.2e-3 ("NVIDIA H100 80GB HBM3, 700.00 W").  The
+# bf16 step is held by its loss (and ten steps falling); the gradients
+# and the update are held in float32, at full width
+MESH_UPDATE_DTYPE = "float32"
+# the float32 step against one process's, by the relative norm of the
+# difference over every tensor, each limit read beside one process's own
+# sensitivity: the same step from weights each scaled by 1 + NUDGE N(0, 1),
+# about one float32 rounding.  On the H100 (700 W) the mesh read, and the
+# nudge beside it: loss 2.2e-7 to 6.8e-7; gradients 2.6e-4 to 6.6e-4
+# (classifier, segmenter) and 1.84e-3 (autoencoder; nudge 3.0e-4 to
+# 1.43e-3); update 3.0e-3 to 4.5e-3 and 1.82e-2 (nudge 3.2e-3 to 1.45e-2).
+# The autoencoder's update is one process's own: 2 of its 28,672 Chamfer
+# pairs pick another nearest point over the mesh and 1 under the nudge,
+# each a near-tie (gap 1.8e-5 of the distance at most), and Adam's first
+# step turns the gradient that moves with them into flipped signs.  A
+# planted fault, node-level gradients summed over ``points``, reads 0.57
+# to 0.92 on the gradients and the honest 3.4e-3 to 1.83e-2 on the update
+# (Adam's first step does not see a gradient's scale): the gradient gate
+# lies 11x above the largest honest reading and 28x below the smallest
+# planted one
+MESH_F32_LOSS_RTOL = 1e-4
+MESH_GRAD_RTOL = 2e-2
+MESH_UPDATE_RTOL = 5e-2
+NUDGE = 1e-7
+# kernel 1's per-rank shape at config.modelnet40() width, M=64
+MESH_KERNEL1 = {(2, 1): (4, 15000, 384, 64), (1, 2): (8, 7500, 384, 64)}
+
+
+def _torchrun(nproc, args, out_path):
+    """Start ``python -m torch.distributed.run --standalone`` with
+    ``nproc`` processes of ``args``, its output to ``out_path``.  Returns
+    the Popen."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="4")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc)] + args
+    log("launch: " + " ".join(cmd[1:]))
+    with open(out_path, "w") as out:
+        return subprocess.Popen(cmd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT, text=True,
+                                cwd=repo)
+
+
+def _wait_ranks(p, what, log_path, timeout=600):
+    """Wait for a ``_torchrun`` launch; any rank's failure ends the smoke.
+    Returns its output."""
+    try:
+        rc = p.wait(timeout=timeout)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        log(text[-6000:])
+        raise AssertionError(f"{what}: the ranks exited with {rc}")
+    return text
+
+
+def _run_ranks(nproc, args, timeout, out_path):
+    """Run ``_torchrun`` to its end; any rank's failure ends the smoke."""
+    return _wait_ranks(_torchrun(nproc, args, out_path),
+                       f"{nproc} ranks of {args[:2]}", out_path, timeout)
+
+
+def _rank_results(out_dir, name, nproc):
+    """What each rank of a launch wrote (``<name>.<rank>.json``)."""
+    res = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"{name}.{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+def _timed_collectives():
+    """Wrap torch.distributed's all_reduce and broadcast: returns a dict
+    that adds up their count and host-clock seconds (the card synced
+    first, so a collective does not absorb the work queued before it;
+    gloo syncs on its own copy to the host anyway)."""
+    import torch
+    import torch.distributed as dist
+    spent = {"calls": 0, "s": 0.0}
+
+    def timed(real):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **k)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            return out
+        return call
+    dist.all_reduce = timed(dist.all_reduce)
+    dist.broadcast = timed(dist.broadcast)
+    return spent
+
+
+def _grads(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def _grad_rel_diff(want, got) -> float:
+    """The relative norm, over every gradient, of ``got - want``."""
+    num = sum(float((got[n] - g).double().square().sum())
+              for n, g in want.items())
+    den = sum(float(g.double().square().sum()) for g in want.values())
+    return (num / den) ** 0.5
+
+
+def _sharded_pooling_check(mesh, dev):
+    """Kernel 1 under a (1, 2) mesh at the main path's per-rank shape
+    (8, 7500, 384) bf16, M=64: ``windowed_vals_sharded`` (the kernel on
+    this rank's block, then the all-reduce MAX over ``points``) against
+    its plain version (the plain ``windowed_vals`` and the same
+    all-reduce) and against the kernel on the whole clouds, all ``==``.
+    Returns (equal to the plain version, equal to the whole clouds' rows,
+    max abs difference)."""
+    import torch
+    import torch.distributed as dist
+    from sonet_torch.ops.cuda.segment_max_window import (windowed_vals,
+                                                         windowed_vals_plain)
+    from sonet_torch.ops.segment_fast import windowed_vals_sharded
+    from sonet_torch.parallel import collectives
+    from sonet_torch.parallel.mesh import block
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, M = 8, 64
+    ids = _flagship_ids(torch, B, 5000, M, 3, gen, dev)        # (8, 15000)
+    data = torch.randn((B, ids.shape[1], 384), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    d = block(data, ("data", "points"), mesh).contiguous()
+    i = block(ids, ("data", "points"), mesh).contiguous()
+    with collectives.use_mesh(mesh):
+        got = windowed_vals_sharded(d, i, M)
+        plain = collectives.all_reduce(
+            _plain_by_clouds(windowed_vals_plain, d, i, M), ("points",),
+            op=dist.ReduceOp.MAX)
+    whole = block(windowed_vals(data, ids, M), ("data",), mesh)
+    torch.cuda.synchronize()
+    err = float((got - plain).abs().max())
+    return (bool(torch.equal(got, plain)), bool(torch.equal(got, whole)),
+            err)
+
+
+def _mesh_counters():
+    """Both kernels' launch counters, by name, as the ranks read them."""
+    from sonet_torch.ops.cuda.segment_argmax import segment_argmax
+    from sonet_torch.ops.cuda.segment_max_window import windowed_vals
+    return {"segment_max_window": windowed_vals,
+            "segment_argmax": segment_argmax}
+
+
+def _planted_sync_grads(model, mesh):
+    """A fault for the float32 gate to catch: every gradient summed over
+    the whole mesh, node-level ones too (counted P times along
+    ``points``).  Adam's first step follows the gradients' signs, so the
+    update alone cannot see it."""
+    import torch.distributed as dist
+    from sonet_torch.parallel import collectives
+    d = collectives.axis_size("data", mesh)
+    for p in model.parameters():
+        if p.grad is not None:
+            dist.all_reduce(p.grad)
+            p.grad.div_(d)
+
+
+def _chamfer_calls(record):
+    """A context that records the (reconstruction, input cloud) of every
+    Chamfer call of a train step's loss into ``record``."""
+    import contextlib
+
+    from sonet_torch.train import loops
+
+    @contextlib.contextmanager
+    def ctx():
+        real = loops.chamfer
+
+        def recording(predict_pc, gt_pc):
+            record.append((predict_pc.detach().clone(),
+                           gt_pc.detach().clone()))
+            return real(predict_pc, gt_pc)
+        loops.chamfer = recording
+        try:
+            yield
+        finally:
+            loops.chamfer = real
+    return ctx()
+
+
+def _chamfer_flips(one, other):
+    """Of the Chamfer pairs that ``one`` run's calls pick (each
+    reconstructed point's nearest input point and each input point's
+    nearest reconstructed point, in float64 from the recorded clouds), how
+    many ``other`` run picks differently, and the largest gap, relative
+    to the distance, between the two picks under ``one``'s distances:
+    a pair that flips on a rounding-level change of the reconstruction is
+    a near-tie.  Also the largest difference between the reconstructions,
+    relative to their largest coordinate."""
+    import torch
+    pairs = flips = 0
+    gap = pred = 0.0
+    for (pa, ga), (pb, gb) in zip(one, other):
+        if not torch.equal(ga, gb):
+            raise AssertionError("the two runs' Chamfer inputs differ")
+        da = torch.cdist(pa.double(), ga.double()).square()   # (B, P, N)
+        db = torch.cdist(pb.double(), ga.double()).square()
+        pred = max(pred, float((pa - pb).abs().max() / pa.abs().max()))
+        for dim in (-1, -2):
+            ia, ib = da.argmin(dim, keepdim=True), db.argmin(dim, keepdim=True)
+            moved = ia != ib
+            pairs += ia.numel()
+            flips += int(moved.sum())
+            if moved.any():
+                near = da.gather(dim, ia)
+                rel = (da.gather(dim, ib) - near) / near.clamp_min(1e-30)
+                gap = max(gap, float(rel[moved].max()))
+    return {"pairs": pairs, "flips": flips, "max_gap": gap,
+            "pred_rel": pred}
+
+
+def mesh_steps_worker(out_dir):
+    """One rank of phases "mesh", "mesh_segment" and "mesh_autoencode"
+    (launched by ``phase_mesh_steps``).  For each task and mesh, in the
+    configuration's bf16: the first train step against the one-process
+    step from the same weights and batch (rank 0 runs that one alone; the
+    loss, and the gradients and the update by relative norm), then
+    TRAIN_STEPS steps on one batch over the mesh with both kernels'
+    launches and the graph replays counted from 0, each timed with its
+    gloo collectives apart; then the first step again in float32
+    (``MESH_UPDATE_DTYPE``), where the gradients and the update are held,
+    beside one process's own sensitivity (the same step from weights one
+    rounding away), the autoencoder's Chamfer pairs that flip, and, where
+    the points axis is split, a planted fault (``_planted_sync_grads``)
+    that the gate must refuse.  Writes ``steps.<rank>.json``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from sonet_torch import config, train
+    from sonet_torch.parallel import (collectives, make_mesh,
+                                      maybe_init_distributed, shard_batch)
+    from sonet_torch.parallel.distributed import all_gather
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_init_distributed("auto", MESH_DEVICE)
+    rank = dist.get_rank()
+    dev = torch.device(MESH_DEVICE)
+    spent = _timed_collectives()
+    record, shapes = _kernel1_shapes()
+    counters = _mesh_counters()
+
+    def first_step(cfg, batch, mesh, nudge=False):
+        """(loss, gradients, state before, state after) of one train step
+        from seed 0's weights (``nudge``: each weight moved by about one
+        float32 rounding, seeded), over ``mesh`` (this rank's block) or in
+        one process."""
+        st = train.init_state(cfg, device=dev, seed=0, steps_per_epoch=100,
+                              mesh=mesh)
+        if nudge:
+            g = torch.Generator(device=dev).manual_seed(5)
+            with torch.no_grad():
+                for p in st.model.parameters():
+                    p.mul_(1 + NUDGE * torch.randn(p.shape, generator=g,
+                                                   device=dev))
+        step, _ = train.make_steps(cfg, 100, mesh=mesh)
+        before = _state_tensors(st)
+        gen = torch.Generator(device=dev).manual_seed(7)
+        loss = float(step(st, batch, gen)[1]["loss"])
+        return loss, _grads(st.model), before, _state_tensors(st), st, step
+
+    def shifted(before, after, to):
+        """``after``'s update applied to ``to``, for update_rel_diff."""
+        return {k: after[k] - before[k] + to[k] for k in to}
+
+    res = {"pooling": _sharded_pooling_check(make_mesh((1, 2)), dev)}
+    for phase, cfg, meshes in (
+            ("mesh", config.modelnet40(), ((2, 1), (1, 2))),
+            ("mesh_segment", config.shapenetpart(), ((1, 2),)),
+            ("mesh_autoencode", config.autoencoder(), ((1, 2),))):
+        t_phase = time.perf_counter()
+        cfg = cfg.replace(dropout=0.0)
+        B = cfg.batch_size
+        clouds = _clouds(np, B, cfg, seed=3)
+        if cfg.task == "classify":
+            clouds["label"] = np.random.RandomState(4).randint(
+                0, cfg.classes, B)
+        batch = {n: torch.from_numpy(a).to(dev) for n, a in clouds.items()}
+        for dtype in (cfg.compute_dtype, MESH_UPDATE_DTYPE):
+            dcfg = cfg.replace(compute_dtype=dtype)
+            main = dtype == cfg.compute_dtype
+            pairs = cfg.task == "autoencode" and not main
+            one = None
+
+            def chamfer_calls(calls):
+                return (_chamfer_calls(calls) if pairs
+                        else contextlib.nullcontext())
+            if rank == 0:     # one process; in bf16 timed over 3 more steps
+                calls_one, calls_nudged = [], []
+                with chamfer_calls(calls_one):
+                    loss, grads, before, after, st, step = first_step(
+                        dcfg, batch, None)
+                one = {"loss": loss, "grads": grads, "after": after,
+                       "calls": calls_one}
+                if not main:  # the same step again: one process's own spread
+                    *_, again, st2, _ = first_step(dcfg, batch, None)
+                    one["again"] = update_rel_diff(before, after, again)
+                    with chamfer_calls(calls_nudged):
+                        _, g2, b2, a2, st2, _ = first_step(dcfg, batch, None,
+                                                           nudge=True)
+                    one["nudged"] = {
+                        "grad_rel_diff": _grad_rel_diff(grads, g2),
+                        "update_rel_diff": update_rel_diff(
+                            before, after, shifted(b2, a2, before))}
+                    if pairs:
+                        one["nudged"]["chamfer"] = _chamfer_flips(
+                            calls_one, calls_nudged)
+                    del st2
+                if main:
+                    gen = torch.Generator(device=dev).manual_seed(8)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        step(st, batch, gen)
+                    torch.cuda.synchronize()
+                    one["ms"] = (time.perf_counter() - t0) / 3 * 1e3
+                del st
+            for shape in meshes:
+                mesh = make_mesh(shape)
+                local = {k: v.contiguous() for k, v in
+                         shard_batch(batch, mesh).items()}
+                key = f"{phase} {shape} {dtype}"
+                _reset(counters)
+                shapes.clear()
+                spent["calls"] = 0
+                calls = []
+                # the main path: its launches and replays from 0
+                with record(), _GraphCounter() as graphs, \
+                        chamfer_calls(calls):
+                    c0, t0 = spent["s"], time.perf_counter()
+                    loss, grads, before, first, st, step = first_step(
+                        dcfg, local, mesh)
+                    losses, times, coll = [loss], [], []
+                    spent["calls"] = 0       # the steps', not the set-up's
+                    gen = torch.Generator(device=dev).manual_seed(8)
+                    for _ in range(TRAIN_STEPS - 1 if main else 0):
+                        c0, t0 = spent["s"], time.perf_counter()
+                        losses.append(float(step(st, local, gen)[1]["loss"]))
+                        times.append((time.perf_counter() - t0) * 1e3)
+                        coll.append((spent["s"] - c0) * 1e3)
+                res[key] = {
+                    "launches": _launch_counts(counters),
+                    "replays": graphs.replays,
+                    "shapes": {str(list(k)): n for k, n in shapes.items()},
+                    "losses": losses}
+                del st
+                if main:
+                    res[key].update(
+                        step_ms=statistics.median(times),
+                        collective_ms=statistics.median(coll),
+                        collectives_a_step=round(
+                            spent["calls"] / (TRAIN_STEPS - 1)))
+                # the reconstructions over the mesh against the whole
+                # input cloud, gathered from the points ranks
+                calls = [(p, all_gather(g, ("points",), mesh, lead=1))
+                         for p, g in calls]
+                planted = None
+                if not main and shape[1] > 1:   # a fault the gate must see
+                    real = collectives.sync_grads
+                    collectives.sync_grads = _planted_sync_grads
+                    try:
+                        _, pg, pb, pa, st, _ = first_step(dcfg, local, mesh)
+                    finally:
+                        collectives.sync_grads = real
+                    del st
+                    if rank == 0:
+                        planted = {
+                            "grad_rel_diff": _grad_rel_diff(one["grads"], pg),
+                            "update_rel_diff": update_rel_diff(
+                                before, one["after"], shifted(pb, pa,
+                                                              before))}
+                if rank == 0:
+                    res[key].update(
+                        one_loss=one["loss"], one_ms=one.get("ms"),
+                        one_again=one.get("again"),
+                        nudged=one.get("nudged"), planted=planted,
+                        grad_rel_diff=_grad_rel_diff(one["grads"], grads),
+                        update_rel_diff=update_rel_diff(
+                            before, one["after"], first))
+                    if pairs:
+                        res[key]["chamfer"] = _chamfer_flips(one["calls"],
+                                                             calls)
+        res[phase + " s"] = time.perf_counter() - t_phase
+    with open(os.path.join(out_dir, f"steps.{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mesh_nccl_worker(out_dir):
+    """The world of one over NCCL (launched by ``phase_mesh_steps``): the same
+    train step captured twice, over no mesh and over the (1, 1) mesh of
+    the NCCL group (its gradients and metrics all-reduced inside the
+    graph), one replay each from the same weights, batch and generator
+    state: the two states must be equal.  Writes ``nccl.0.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from sonet_torch import config, train
+    from sonet_torch.parallel import make_mesh, maybe_init_distributed
+    from sonet_torch.train.graphs import StepGraph
+    from sonet_torch.train.state import set_capturable, snapshot
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    maybe_init_distributed("auto", "cuda")
+    backend = dist.get_backend()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = config.modelnet40().replace(dropout=0.0)
+    clouds = _clouds(np, cfg.batch_size, cfg, seed=3)
+    clouds["label"] = np.random.RandomState(4).randint(0, cfg.classes,
+                                                       cfg.batch_size)
+    batch = {n: torch.from_numpy(a).pin_memory() for n, a in clouds.items()}
+    states, graphs = [], []
+    counters = _mesh_counters()
+    _reset(counters)
+    with _GraphCounter() as counted:
+        for mesh in (None, make_mesh((1, 1))):
+            st = train.init_state(cfg, device=dev, seed=0,
+                                  steps_per_epoch=100, mesh=mesh)
+            set_capturable(st.optimizer, True)
+            step, _ = train.make_steps(cfg, 100, mesh=mesh)
+            gen = torch.Generator(device=dev).manual_seed(7)
+            g = StepGraph(lambda s=st, f=step, r=gen, **b: f(s, b, r)[1],
+                          dev, generators=(gen,),
+                          snapshot=lambda s=st: snapshot(s), mesh=mesh)
+            g(**batch)
+            torch.cuda.synchronize()
+            states.append(_state_tensors(st))
+            graphs.append(g)
+    same = all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    res = {"backend": backend, "equal": same,
+           "eager": [g.eager for g in graphs],
+           "captures": counted.captures, "replays": counted.replays,
+           "launches": _launch_counts(counters)}
+    with open(os.path.join(out_dir, "nccl.0.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _rank_cli_args(out_base, argv):
+    """This script's ``--rank_cli`` arguments for ``sonet-torch <argv>``:
+    the command's own arguments go through a file, since torchrun's parser
+    would take an abbreviation of its options among them (``--run`` for
+    ``--run-path``)."""
+    with open(out_base + ".argv.json", "w") as f:
+        json.dump(argv, f)
+    return [os.path.abspath(__file__), "--rank_cli", out_base]
+
+
+def rank_cli(out_base):
+    """One rank of ``sonet-torch <argv>`` under torchrun (``phase_mesh_trainer``'s
+    trainer runs; ``argv`` from ``<out_base>.argv.json``): the command as a
+    user runs it, both kernels' launches and the graph replays counted
+    from 0 around it; writes ``<out_base>.<rank>.json``."""
+    from sonet_torch import cli
+    with open(out_base + ".argv.json") as f:
+        argv = json.load(f)
+    record, shapes = _kernel1_shapes()
+    counters = _mesh_counters()
+    _reset(counters)
+    with record(), _GraphCounter() as graphs:
+        rc = cli.main(argv)
+    rank = int(os.environ["RANK"])
+    with open(f"{out_base}.{rank}.json", "w") as f:
+        json.dump({"rc": rc, "launches": _launch_counts(counters),
+                   "replays": graphs.replays,
+                   "shapes": {str(list(k)): n for k, n in shapes.items()}},
+                  f)
+    return rc
+
+
+def _rank_pid(parent, rank):
+    """The pid of the process of ``rank`` among torchrun ``parent``'s
+    children, from their environments under /proc."""
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid != parent:
+                continue
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if f"RANK={rank}".encode() in env:
+            return int(pid)
+    return None
+
+
+def _check_kernel1(what, results, want):
+    """Every rank launched kernel 1, at ``want`` only."""
+    for r, got in enumerate(results):
+        n = got["launches"]["segment_max_window"]
+        if n < 1 or set(got["shapes"]) != {str(list(want))}:
+            raise AssertionError(f"{what}, rank {r}: kernel 1 launched "
+                                 f"{n} times at "
+                                 f"{got['shapes']}, want {want} only")
+
+
+def phase_mesh_steps(runs, card):
+    """Phases "mesh", "mesh_segment" and "mesh_autoencode": two ranks on
+    the one card, ``MESH_DEVICE``, over gloo, launched with torchrun.
+    Returns ({path: {kernel: launches over its ranks}}, {path: graph
+    replays over its ranks})."""
+    me = os.path.abspath(__file__)
+    out = os.path.join(runs, "mesh")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    _run_ranks(MESH_RANKS, [me, "--mesh_steps", out], 600,
+               os.path.join(out, "steps.log"))
+    took = time.perf_counter() - t0
+    return check_mesh_steps(_rank_results(out, "steps", MESH_RANKS), card,
+                            took)
+
+
+def check_mesh_steps(res, card, took):
+    """Hold what the ranks of ``mesh_steps_worker`` wrote (``res``, by
+    rank); returns what ``phase_mesh_steps`` returns."""
+    from sonet_torch import config
+    launches, replays = {}, {}
+    pooling = [r["pooling"] for r in res]
+    log(f"kernel 1 under the (1, 2) mesh at (8, 7500, 384) a rank on {card}: "
+        f"the kernel and the all-reduce MAX equal to the plain version and "
+        f"to the whole clouds' kernel, by rank: {pooling}")
+    if not all(p[0] and p[1] for p in pooling):
+        raise AssertionError("kernel 1 under the mesh differs from its plain "
+                             "version")
+    for phase, task_cfg in (("mesh", config.modelnet40()),
+                            ("mesh_segment", config.shapenetpart()),
+                            ("mesh_autoencode", config.autoencoder())):
+        launches[phase] = {"segment_max_window": 0, "segment_argmax": 0}
+        replays[phase] = 0
+        bf16 = task_cfg.compute_dtype
+        for key in [k for k in res[0] if k.startswith(phase + " (")]:
+            shape = tuple(int(x) for x in key.split("(")[1].split(")")[0]
+                          .split(","))
+            main = key.endswith(bf16)
+            r0 = res[0][key]
+            want_n = TRAIN_STEPS if main else 1
+            want = MESH_KERNEL1[shape] if phase == "mesh" and main else None
+            for r, rr in enumerate(res):
+                got = rr[key]
+                for name, n in got["launches"].items():
+                    launches[phase][name] += n
+                replays[phase] += got["replays"]
+                n1 = got["launches"]["segment_max_window"]
+                if n1 != want_n or len(got["shapes"]) != 1:
+                    raise AssertionError(f"{key}, rank {r}: kernel 1 {n1} "
+                                         f"launches at {got['shapes']}")
+                if want and set(got["shapes"]) != {str(list(want))}:
+                    raise AssertionError(f"{key}, rank {r}: kernel 1 at "
+                                         f"{got['shapes']}, want {want}")
+                if got["losses"] != r0["losses"]:
+                    raise AssertionError(f"{key}: ranks report other losses")
+            losses = r0["losses"]
+            rel = abs(losses[0] - r0["one_loss"]) / abs(r0["one_loss"])
+            log(f"{phase} {_describe(task_cfg.replace(dropout=0.0))} over "
+                f"mesh {shape} in {key.split()[-1]} on {card}: kernel 1 per "
+                f"rank at {sorted(r0['shapes'])} x "
+                f"{r0['launches']['segment_max_window']}, graph replays "
+                f"{r0['replays']}; first loss {losses[0]:.6f} against one "
+                f"process's {r0['one_loss']:.6f} ({rel:.2e}); gradients "
+                f"{r0['grad_rel_diff']:.3e} and update "
+                f"{r0['update_rel_diff']:.3e} of one process's by norm"
+                + (f"; one process against itself: update "
+                   f"{r0['one_again']:.3e}; from weights one rounding away "
+                   f"(x(1 + {NUDGE} N(0, 1))): {r0['nudged']}; a planted "
+                   f"fault (node-level gradients summed over points): "
+                   f"{r0['planted']}; Chamfer pairs over the mesh: "
+                   f"{r0.get('chamfer')}" if not main else "")
+                + (f"; losses {losses}; a step {r0['step_ms']:.1f} ms over "
+                   f"the mesh (gloo collectives {r0['collective_ms']:.1f} "
+                   f"ms, {r0['collective_ms'] / r0['step_ms']:.1%}, "
+                   f"{r0['collectives_a_step']} a step) against "
+                   f"{r0['one_ms']:.1f} ms in one process" if main else ""))
+            if rel > (MESH_LOSS_RTOL if main else MESH_F32_LOSS_RTOL):
+                raise AssertionError(f"{key}: first loss off by {rel:.2e}")
+            if not main and (r0["grad_rel_diff"] > MESH_GRAD_RTOL
+                             or r0["update_rel_diff"] > MESH_UPDATE_RTOL):
+                raise AssertionError(
+                    f"{key}: gradients off by {r0['grad_rel_diff']:.2e} "
+                    f"(limit {MESH_GRAD_RTOL}), update by "
+                    f"{r0['update_rel_diff']:.2e} (limit {MESH_UPDATE_RTOL})")
+            if r0.get("planted") and not (
+                    r0["planted"]["grad_rel_diff"] > MESH_GRAD_RTOL):
+                raise AssertionError(f"{key}: the gate passed a planted "
+                                     f"fault: {r0['planted']}")
+            if main and not (all(abs(x) < float("inf") for x in losses)
+                             and losses[-1] < losses[0]):
+                raise AssertionError(f"{key}: losses not finite and "
+                                     f"falling: {losses}")
+        log(f"phase {phase} on {card}: {res[0][phase + ' s']:.1f} s in "
+            f"the ranks ({took:.1f} s for the launch of all three)")
+    return launches, replays
+
+
+def start_mesh_nccl(runs):
+    """Launch the NCCL world of one (``mesh_nccl_worker``); it runs beside
+    the "mesh_trainer" launches, whose times are not read.  Returns the
+    Popen for ``finish_mesh_nccl``."""
+    out = os.path.join(runs, "mesh")
+    os.makedirs(out, exist_ok=True)
+    return _torchrun(1, [os.path.abspath(__file__), "--mesh_nccl", out],
+                     os.path.join(out, "nccl.log"))
+
+
+def finish_mesh_nccl(p, runs, card):
+    """Check the NCCL world of one: its captured step over the (1, 1)
+    mesh, gradients and metrics all-reduced inside the graph, `==` the
+    captured step over no mesh.  Returns (launches, replays)."""
+    out = os.path.join(runs, "mesh")
+    rc = p.wait(timeout=300)
+    nccl = _rank_results(out, "nccl", 1)[0] if rc == 0 else None
+    log(f"mesh, the NCCL world of one on {card}: {nccl}")
+    if nccl is None or not (
+            nccl["backend"] == "nccl" and nccl["equal"]
+            and nccl["eager"] == [False, False] and nccl["captures"] == 2
+            and nccl["replays"] == 2
+            and nccl["launches"]["segment_max_window"] == 4):
+        with open(os.path.join(out, "nccl.log")) as f:
+            log(f.read()[-6000:])
+        raise AssertionError("the NCCL world of one: want its captured step "
+                             "== the captured step over no mesh")
+    return nccl["launches"], nccl["replays"]
+
+
+def _infer_rows(out, name):
+    """(predictions.csv's rows, the (items, classes) scores) that
+    ``sonet-torch infer --dump_arrays`` wrote under ``out/name``."""
+    import csv
+
+    import numpy as np
+    d = os.path.join(out, name)
+    with open(os.path.join(d, "predictions.csv")) as f:
+        rows = list(csv.reader(f))
+    return rows, np.stack([np.load(os.path.join(d, f"score_{i:06d}.npy"))
+                           for i in range(len(rows) - 1)])
+
+
+def _same_predictions(one, two, items):
+    """``infer`` over two ranks (``two``) against one process (``one``),
+    each ``_infer_rows``: the same rows in the same order, each item's
+    class scores within the bf16 rule (``LOGIT_RTOL`` of the largest
+    entry), and the same predicted class wherever one process's two best
+    scores lie further apart than that."""
+    import numpy as np
+    (rows1, s1), (rows2, s2) = one, two
+    scale = float(np.abs(s1).max())
+    diff = float(np.abs(s2 - s1).max()) if s1.shape == s2.shape else None
+    top2 = np.sort(s1, -1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > LOGIT_RTOL * scale
+    moved = [i for i in range(len(rows1) - 1)
+             if rows1[i + 1][2] != rows2[i + 1][2] and clear[i]]
+    log(f"infer's rows over 2 ranks against one process: {len(rows2) - 1} "
+        f"and {len(rows1) - 1} items, class scores {s2.shape} and "
+        f"{s1.shape}, max difference {diff} (tolerance {LOGIT_RTOL} x "
+        f"{scale}); predicted class moved on {moved} of the {int(clear.sum())} "
+        f"items whose two best scores are further apart")
+    if ([r[:2] for r in rows1] != [r[:2] for r in rows2]
+            or len(rows1) - 1 != items or diff is None
+            or diff > LOGIT_RTOL * scale or moved):
+        raise AssertionError("infer's rows over two ranks disagree with one "
+                             "process's")
+
+
+def phase_mesh_trainer(runs, card):
+    """Phase "mesh_trainer": ``sonet-torch classify`` on two ranks of the
+    one card over the "reproduce" tree, the host pipeline stopped by a
+    SIGTERM to rank 1 and the run restored in one process, beside it the
+    device pipeline with the train split sharded; then ``sonet-torch infer
+    --mesh_shape 2`` against one process, the two side by side (no time
+    of these launches is read).  Returns (kernel 1's launches over the
+    ranks, graph replays)."""
+    import torch
+    from sonet_torch.config import load_config
+    from sonet_torch.train.trainer import Trainer
+    out = os.path.join(runs, "mesh")
+    os.makedirs(out, exist_ok=True)
+    t_phase = time.perf_counter()
+    tree = os.path.join(runs, "reproduce_data", "modelnet40")
+    flags = ["--device", MESH_DEVICE, "--distributed", "auto", "--preset",
+             "modelnet40", "--dataset", "modelnet", "--dataroot", tree,
+             "--checkpoints_dir", out]
+    # the host pipeline, two epochs of 10 steps; a SIGTERM to rank 1 alone
+    # once epoch 0's eval is logged stops both in epoch 1, with a checkpoint
+    run = os.path.join(out, "mesh_host")
+    metrics = os.path.join(run, "train_metrics.jsonl")
+    logs = {k: os.path.join(out, f"{k}.log") for k in ("host", "device",
+                                                       "infer")}
+    p = _torchrun(MESH_RANKS, _rank_cli_args(
+        os.path.join(out, "host"), ["classify", "--name", "mesh_host",
+                                    "--epochs", "2"] + flags),
+        logs["host"])
+    # the device pipeline, the train split sharded over the two ranks
+    p_dev = _torchrun(MESH_RANKS, _rank_cli_args(
+        os.path.join(out, "device"),
+        ["classify", "--name", "mesh_device", "--epochs", "1",
+         "--input_pipeline", "device", "--dataset_placement", "sharded",
+         "--checkpoint_every", "10"] + flags), logs["device"])
+    signalled = None
+    deadline = time.time() + 600
+    while p.poll() is None and time.time() < deadline:
+        if signalled is None and os.path.exists(metrics):
+            with open(metrics) as f:
+                if '"test_loss"' in f.read():
+                    signalled = _rank_pid(p.pid, 1)
+                    os.kill(signalled, signal.SIGTERM)
+        time.sleep(0.1)
+    text = _wait_ranks(p, "two-rank classify, host pipeline", logs["host"])
+    if signalled is None:
+        raise AssertionError("two-rank classify ended before the SIGTERM")
+    host = _rank_results(out, "host", MESH_RANKS)
+    _check_kernel1("mesh_trainer host", host, MESH_KERNEL1[(2, 1)])
+    with open(metrics) as f:
+        recs = [json.loads(ln) for ln in f]
+    tests = [r for r in recs if "test_loss" in r]
+    stops = [r for r in recs if "train_stopped_early" in r]
+    ckpts = sorted(os.listdir(os.path.join(run, "ckpt")))
+    stop_step = int(ckpts[-1][5:13])
+    log(f"two-rank classify, host pipeline: SIGTERM to rank 1 (pid "
+        f"{signalled}) after epoch 0's eval; {len(tests)} evals and "
+        f"{len(stops)} stop logged once each by rank 0, checkpoints "
+        f"{ckpts}; launches {[h['launches'] for h in host]} and graph "
+        f"replays {[h['replays'] for h in host]} by rank, kernel 1 at "
+        f"{host[0]['shapes']}")
+    if (len(tests) != 2 or len(stops) != 1 or not 10 < stop_step <= 20
+            or "stop requested" not in text):
+        raise AssertionError("the stop on rank 1 did not stop both ranks "
+                             "with one checkpoint in epoch 1")
+    if sorted(os.listdir(run)) != sorted(
+            ["config.json", "ckpt", "train_metrics.jsonl",
+             "train_train_metrics.csv", "train_test_metrics.csv"]):
+        raise AssertionError(f"the run holds {sorted(os.listdir(run))}")
+    # the run restores in one process, bit for bit
+    cfg = load_config(os.path.join(run, "config.json"))
+    if cfg.mesh_shape != (2, 1) or cfg.distributed != "auto":
+        raise AssertionError(f"the run's config: {cfg.mesh_shape}, "
+                             f"{cfg.distributed!r}")
+    t = Trainer(cfg.replace(mesh_shape=(1, 1), distributed=""), quiet=True,
+                device="cuda")
+    saved = torch.load(os.path.join(run, "ckpt", ckpts[-1]),
+                       map_location="cuda", weights_only=True)["model"]
+    if t.state.step != stop_step or t.mesh is not None or not all(
+            torch.equal(v, saved[k]) for k, v in t.model.state_dict().items()):
+        raise AssertionError("the two-rank run did not restore in one "
+                             "process")
+    del t
+
+    text = _wait_ranks(p_dev, "two-rank classify, device pipeline",
+                       logs["device"])
+    dev_res = _rank_results(out, "device", MESH_RANKS)
+    _check_kernel1("mesh_trainer device", dev_res, MESH_KERNEL1[(2, 1)])
+    ck = os.listdir(os.path.join(out, "mesh_device", "ckpt"))
+    log(f"two-rank classify, device pipeline, sharded placement: "
+        f"checkpoints {ck}; launches {[d['launches'] for d in dev_res]} "
+        f"and graph replays {[d['replays'] for d in dev_res]} by rank, "
+        f"kernel 1 at {dev_res[0]['shapes']}")
+    if "sharded over 2 data shards" not in text or ck != [
+            "step_00000010.pt"]:
+        raise AssertionError("the sharded device-pipeline run")
+
+    # sonet-torch infer over the two ranks against one process
+    p = _torchrun(MESH_RANKS, _rank_cli_args(
+        os.path.join(out, "infer"),
+        ["infer", "--run", run, "--device", MESH_DEVICE, "--mesh_shape",
+         "2", "--distributed", "auto", "--dump_arrays", "--out",
+         os.path.join(out, "infer2")]), logs["infer"])
+    _, text = _cli_output(["infer", "--run", run, "--device", "cuda",
+                           "--dump_arrays", "--out",
+                           os.path.join(out, "infer1")])
+    one = json.loads(text.strip().splitlines()[-1])
+    _wait_ranks(p, "sonet-torch infer over two ranks", logs["infer"])
+    inf = _rank_results(out, "infer", MESH_RANKS)
+    _check_kernel1("mesh_trainer infer", inf, MESH_KERNEL1[(2, 1)])
+    with open(os.path.join(out, "infer2", "summary.json")) as f:
+        two = json.load(f)
+    rows, scores = _infer_rows(out, "infer1"), _infer_rows(out, "infer2")
+    log(f"sonet-torch infer over 2 ranks: {two}; in one process: {one}")
+    if (two["items"] != one["items"] or two["accuracy"] != one["accuracy"]
+            or abs(two["loss"] - one["loss"]) > LOGIT_RTOL * abs(one["loss"])):
+        raise AssertionError("infer over two ranks disagrees with one "
+                             "process")
+    _same_predictions(rows, scores, one["items"])
+    log(f"phase mesh_trainer on {card}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    ranks = host + dev_res + inf
+    return ({n: sum(x["launches"][n] for x in ranks)
+             for n in ranks[0]["launches"]},
+            sum(x["replays"] for x in ranks))
+
+
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # the ranks that the mesh phases launch with torchrun run this script
+    workers = {"--mesh_steps": mesh_steps_worker,
+               "--mesh_nccl": mesh_nccl_worker}
+    if argv[:1] and argv[0] in workers:
+        workers[argv[0]](argv[1])
+        return 0
+    if argv[:1] == ["--rank_cli"]:
+        return rank_cli(argv[1])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR", default=None)
     args = ap.parse_args(argv)
@@ -3170,6 +4066,17 @@ def main(argv=None) -> int:
                 ("export", lambda: phase_export(counters, on_path, run,
                                                 runs))):
             by_path[name], replays[name] = timed(name, phase)
+        # ranks launched with torchrun: their launches counted in the ranks
+        mesh_launches, mesh_replays = timed(
+            "mesh, mesh_segment, mesh_autoencode",
+            lambda: phase_mesh_steps(runs, card))
+        nccl = start_mesh_nccl(runs)
+        mesh_launches["mesh_trainer"], mesh_replays["mesh_trainer"] = timed(
+            "mesh_trainer", lambda: phase_mesh_trainer(runs, card))
+        mesh_launches["mesh_nccl"], mesh_replays["mesh_nccl"] = (
+            finish_mesh_nccl(nccl, runs, card))
+        by_path.update(mesh_launches)
+        replays.update(mesh_replays)
     # every shape kernel 1 was called at after phase 3, checks at small
     # widths included, for the rule-2 watch of phase 3's readings
     log(f"kernel 1 calls by (B, N, C, M) over the paths: {shapes}")

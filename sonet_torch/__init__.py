@@ -22,7 +22,7 @@ __version__ = "0.1.0"
 
 # subpackages import lazily on attribute access, as in the JAX package
 _LAZY = ("config", "device", "ops", "nn", "models", "convert", "serving",
-         "train", "som", "data", "retrieval", "utils", "tasks", "cli")
+         "train", "som", "data", "retrieval", "utils", "tasks", "cli", "parallel")
 
 
 def __getattr__(name):

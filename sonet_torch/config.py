@@ -20,6 +20,8 @@ import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
+from .parallel.mesh import parse_mesh_shape
+
 
 @dataclass
 class Config:
@@ -80,11 +82,11 @@ class Config:
     # "scatter" on the CPU (nn/encoder.py:resolve_pooling)
     pooling: str = "auto"  # auto | scatter | sorted_window
     # the fields below keep config.json files interchangeable with the
-    # JAX package.  The port runs on one device: its Trainer takes every
-    # input_pipeline (device_budget_gb bounds the device pipeline's split;
-    # dataset_placement "sharded" needs a mesh and is read as replicated),
-    # refuses a mesh and a distributed run by name (they arrive with a
-    # later slice), and does not read remat
+    # JAX package.  The port's Trainer takes every input_pipeline
+    # (device_budget_gb bounds the device pipeline's split;
+    # dataset_placement "sharded" needs a mesh and is read as replicated
+    # without one), a (data, points) mesh over the processes of a
+    # --distributed run (parallel/), and does not read remat
     input_pipeline: str = "host"  # host | native | device
     device_budget_gb: float = 0.0
     dataset_placement: str = "replicated"  # replicated | sharded
@@ -212,23 +214,6 @@ PRESETS = {
     "mnist": mnist,
     "tiny_test": tiny_test,
 }
-
-
-def parse_mesh_shape(text: str) -> tuple:
-    """A mesh shape from the command line ('4,2', '4x2', '8') as a
-    (data, points) pair; raises ValueError on anything but one or two
-    positive ints."""
-    tokens = [t.strip() for t in str(text).replace("x", ",").split(",")]
-    tokens = [t for t in tokens if t]
-    try:
-        shape = tuple(int(t) for t in tokens)
-    except ValueError:
-        raise ValueError(f"mesh shape {text!r}: want comma- or "
-                         f"'x'-separated positive ints") from None
-    if not 1 <= len(shape) <= 2 or any(s < 1 for s in shape):
-        raise ValueError(f"mesh shape {text!r}: want (data,) or "
-                         f"(data, points) positive ints")
-    return shape + (1,) * (2 - len(shape))
 
 
 def parse_args(argv=None, preset: str = "modelnet40") -> Config:

@@ -20,6 +20,13 @@ distribution; fed the same draws, ``apply_sample`` gives its values.
 A split above ``--device_budget_gb`` streams through ``ChunkedDeviceData``:
 the stacked split stays on the host and an epoch is served in chunks,
 staged one ahead into fixed device buffers.
+
+Under a (data, points) mesh (``parallel/``) the index tables are the
+global ones and every rank gathers its block of a row; the draws are the
+global batch's, each rank keeping its rows and then its block of the
+points (``sample_batch(mesh=...)``), so a mesh epoch draws what a
+one-process epoch draws.  With ``--dataset_placement sharded`` each rank
+holds only its data shard of the train split (``ShardedDeviceSplit``).
 """
 
 from __future__ import annotations
@@ -42,13 +49,16 @@ KEYS = ("pc", "sn", "node", "label", "seg")
 class DeviceData:
     """A split's raw arrays on one device: ``pc`` and ``sn`` (T, N_raw, D),
     ``node`` (T, M, D), ``label`` (T,) int64, ``seg`` (T, N_raw) int64;
-    ``sn`` and ``seg`` may be None."""
+    ``sn`` and ``seg`` may be None.  ``shard``: the arrays hold one data
+    shard of the split (``ShardedDeviceSplit``), whose tables index them
+    per rank."""
 
     pc: torch.Tensor
     sn: Optional[torch.Tensor]
     node: torch.Tensor
     label: torch.Tensor
     seg: Optional[torch.Tensor] = None
+    shard: bool = False
 
     @property
     def size(self) -> int:
@@ -127,6 +137,80 @@ def load_device_data(dataset, device: str | torch.device = "cuda"
     split above the budget use ``ChunkedDeviceData`` (the ``Trainer``
     chooses by ``--device_budget_gb``)."""
     return device_data_from_host(stack_host_split(dataset), device)
+
+
+class ShardedDeviceSplit:
+    """A train split sharded over the mesh's ``data`` axis
+    (``--dataset_placement sharded``; the JAX package's
+    ``ShardedDeviceSplit``): each rank stacks and holds only its data
+    shard's items, so D ranks keep a D times bigger split resident.
+
+    Items are assigned to shards once, by a seeded global permutation
+    (``default_rng(seed + 777)``), in near-equal counts; each epoch
+    shuffles within the shards (``default_rng(seed + 1000 + epoch)``, one
+    permutation per shard in shard order), and a batch is the union of
+    the shards' rows -- stratified, not the one-process global shuffle,
+    as in the JAX package.  ``epoch_index`` gives this rank's (S, B/D)
+    table of LOCAL indices into ``data``; ``local_items`` the global ids
+    this rank stacked."""
+
+    def __init__(self, dataset, mesh, seed: int = 0,
+                 device: str | torch.device = "cuda"):
+        from ..parallel.mesh import coordinate, mesh_shape
+        get = _raw_getter(dataset)
+        T = len(dataset)
+        self.dp = mesh_shape(mesh)[0]
+        if T < self.dp:
+            raise ValueError(
+                f"dataset has {T} items but the 'data' mesh axis has "
+                f"{self.dp} shards; sharded placement needs at least one "
+                "item per shard -- use --dataset_placement replicated")
+        self.size, self.seed = T, seed
+        base, rem = divmod(T, self.dp)
+        self.counts = np.array([base + (s < rem) for s in range(self.dp)],
+                               np.int64)
+        self.per = int(self.counts.max())
+        perm = np.random.default_rng(seed + 777).permutation(T)
+        offs = np.concatenate([[0], np.cumsum(self.counts)])
+        self.shard = coordinate(mesh)[0]
+        ids = perm[offs[self.shard]:offs[self.shard + 1]]
+        self.local_items = sorted(int(g) for g in ids)
+        first = get(int(ids[0]))
+        keys = [k for k in KEYS if k in first]
+        host = {k: np.empty((len(ids),) + np.shape(first[k]),
+                            np.asarray(first[k]).dtype) for k in keys}
+        for j, gid in enumerate(ids):
+            item = get(int(gid))
+            for k in keys:
+                host[k][j] = item[k]
+        host["label"] = host["label"].astype(np.int64)
+        self.data = device_data_from_host(host, device)
+        self.data.shard = True
+
+    def nbytes_per_shard(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in self.data.tensors().values())
+
+    def epoch_index(self, shuffle: bool, epoch: int, batch_size: int):
+        """(this rank's (S, B/D) int64 table of local indices, each row's
+        valid count), the same on every rank for (seed, epoch)."""
+        if batch_size % self.dp:
+            raise ValueError(
+                f"--dataset_placement sharded needs batch_size "
+                f"({batch_size}) divisible by the data-axis size "
+                f"({self.dp})")
+        b = batch_size // self.dp
+        S = int(self.counts.min()) // b
+        if S == 0:
+            return None, []
+        rng = np.random.default_rng(self.seed + 1000 + epoch)
+        table = None
+        for s in range(self.dp):      # every shard's draw, in order
+            loc = (rng.permutation(int(self.counts[s])) if shuffle
+                   else np.arange(int(self.counts[s])))
+            if s == self.shard:
+                table = loc[: S * b].reshape(S, b).astype(np.int64)
+        return table, [batch_size] * S
 
 
 class ChunkedDeviceData:
@@ -394,12 +478,22 @@ def apply_sample(raw: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor],
 
 def sample_batch(data: DeviceData, idx: torch.Tensor,
                  generator: Optional[torch.Generator], cfg: Config, *,
-                 train: bool) -> Dict[str, torch.Tensor]:
+                 train: bool, mesh=None) -> Dict[str, torch.Tensor]:
     """Gather, subsample and augment one batch on ``data``'s device: the
     rows ``idx`` (B,), then ``apply_sample`` with draws from
-    ``generator``.  Reads nothing back to the host."""
+    ``generator``.  Reads nothing back to the host.
+
+    Under a mesh ``idx`` is this rank's block of the batch's rows (B/D,):
+    the draws are those of the whole batch (B rows), of which this rank
+    keeps its own, and the batch is then cut to this rank's block of the
+    points (``parallel.mesh.shard_points``)."""
+    from ..parallel.mesh import coordinate, mesh_shape, shard_points
+    D, d = mesh_shape(mesh)[0], coordinate(mesh)[0]
+    b = idx.shape[0]
     raw = gather(data, idx)
-    draws = draw_sample(generator, idx.shape[0], data.pc.shape[1], cfg,
+    draws = draw_sample(generator, b * D, data.pc.shape[1], cfg,
                         train=train, dim=data.pc.shape[-1],
                         has_sn=data.sn is not None, device=data.pc.device)
-    return apply_sample(raw, draws, cfg, train=train)
+    if D > 1:
+        draws = {k: v[d * b:(d + 1) * b] for k, v in draws.items()}
+    return shard_points(apply_sample(raw, draws, cfg, train=train), mesh)

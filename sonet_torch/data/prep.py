@@ -59,11 +59,23 @@ def _load_cloud(path: str) -> np.ndarray:
 
 
 def cmd_som(args) -> None:
-    from ..device import refuse_mesh, resolve_device
+    from ..config import Config
+    from ..parallel import is_main
+    from ..parallel.distributed import all_gather
+    from ..parallel.mesh import block, setup_mesh
     from ..som import SOMConfig, fit as som_fit
 
-    refuse_mesh(args.mesh_shape, "fits")
-    dev = resolve_device(args.device)
+    # --mesh_shape D: the fits are independent per cloud, so each of D
+    # processes fits its block of every batch; process 0 writes the nodes
+    want = (max(args.mesh_shape, 1), 1)
+    _, mesh, dev = setup_mesh(Config(mesh_shape=want,
+                                     distributed=args.distributed),
+                              args.device)
+    if args.batch % want[0]:
+        print(f"--batch {args.batch} must divide over --mesh_shape "
+              f"{want[0]}", file=sys.stderr)
+        sys.exit(1)
+    main_rank = is_main()
     files = _iter_cloud_files(args.root)
     if not files:
         print(f"no .npy/.npz clouds under {args.root}", file=sys.stderr)
@@ -81,10 +93,12 @@ def cmd_som(args) -> None:
         # (zip(paths, nodes) below drops the padded rows)
         while len(batch) < args.batch:
             batch.append(batch[-1])
-        nodes = som_fit(np.stack(batch), cfg, device=dev).cpu().numpy()
-        for p, node in zip(paths, nodes):
-            _write_som(args.root, p,
-                       np.ascontiguousarray(node, np.float32), rows)
+        mine = block(np.stack(batch), ("data",), mesh)
+        nodes = all_gather(som_fit(mine, cfg, device=dev), ("data",), mesh)
+        for p, node in zip(paths, nodes.cpu().numpy()):
+            if main_rank:
+                _write_som(args.root, p,
+                           np.ascontiguousarray(node, np.float32), rows)
         batch.clear()
         paths.clear()
 
@@ -97,7 +111,8 @@ def cmd_som(args) -> None:
         if len(batch) == args.batch:
             flush()
     flush()
-    print(f"fitted {rows}x{rows} SOMs for {len(files)} shapes")
+    if main_rank:
+        print(f"fitted {rows}x{rows} SOMs for {len(files)} shapes")
 
 
 def _write_som(root: str, cloud_path: str, node: np.ndarray,
@@ -470,8 +485,11 @@ def main(argv=None) -> None:
     pm.add_argument("--som_sample", type=int, default=4096)
     pm.add_argument("--batch", type=int, default=64)
     pm.add_argument("--mesh_shape", type=int, default=0,
-                    help="shard the fit batch over N devices (0 = off; "
-                         "more than 1 is not ported yet)")
+                    help="shard the fit batch over N processes of a "
+                         "--distributed run (0 = one process)")
+    pm.add_argument("--distributed", default="",
+                    help="'auto' (torchrun's environment) or "
+                         "'HOST:PORT,NPROC,PID'")
     pm.add_argument("--schedule", default="prep",
                     choices=("prep", "online"))
     pm.add_argument("--seed", type=int, default=0)

@@ -12,6 +12,15 @@ once per forward, and pooling runs through the CUDA windowed segment-max
 kernel (``ops.segment_fast``); every per-point layer is permutation-
 equivariant and the cluster means are order-invariant, so only pooling
 sees the order.
+
+Under a mesh (``parallel.collectives.use_mesh``) each rank holds its
+(B/D, N/P) block of the cloud: it stacks the k copies of its own points
+and sorts them locally (segment max does not care about the order); the
+node counts and the cluster sums are summed over ``points``, pooling is
+combined over ``points`` (``ops.segment_fast``), and everything from the
+pooled nodes on -- kNN, the kNN layer, the final PointNet, the global
+max -- is node-level work, the same on every points rank.  The first
+PointNet's BatchNorms reduce over the whole mesh (``sharded_points``).
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops import assign_topk, knn, one_hot, segment_max, segment_max_fast
+from ..parallel import collectives
 from .layers import KNNModule, PointNetMLP, PointResNet
 
 
@@ -90,7 +100,8 @@ class Encoder(nn.Module):
                   **layer_kw(cfg))
         first_in = 2 * D if cfg.surface_normal else D
         self.first_pointnet = PointResNet(first_in, (64, 128, 256, 384),
-                                          generator, **kw)
+                                          generator, sharded_points=True,
+                                          **kw)
         if cfg.som_k >= 2:
             self.knnlayer = KNNModule(D, 384, (512, 512), generator, **kw)
             self.final_pointnet = PointNetMLP(D + 512, (768, cfg.feature_num),
@@ -145,12 +156,16 @@ class Encoder(nn.Module):
         # the one-hot is in the compute dtype (exact 0/1), sums in f32
         oh_dtype = compute_dtype(cfg) or torch.float32
         onehot = one_hot(min_idx, M, oh_dtype)         # (B, kN, M)
-        counts = onehot.sum(1, dtype=torch.float32)    # (B, M)
-        mask_row_max = (counts > 0) if sort_points else assign.mask_row_max
+        split = collectives.axis_size("points") > 1
+        # under a split points axis: the sums over every rank's points
+        counts = collectives.reduce_points(
+            onehot.sum(1, dtype=torch.float32))        # (B, M)
+        mask_row_max = ((counts > 0) if sort_points or split
+                        else assign.mask_row_max)
 
         # -- recenter nodes to the actual cluster means ----------------------
-        cluster_sum = torch.bmm(onehot.float().transpose(1, 2),
-                                x_stack.float())
+        cluster_sum = collectives.reduce_points(torch.bmm(
+            onehot.float().transpose(1, 2), x_stack.float()))
         som_node = cluster_sum / (counts[..., None] + 1e-5)   # (B, M, D)
 
         # -- per-point centers and decentering -------------------------------
@@ -170,7 +185,8 @@ class Encoder(nn.Module):
             pooled = segment_max_fast(first_pn_out.contiguous(), min_idx, M,
                                       counts=counts, point0_idx=point0_idx)
         else:
-            pooled = segment_max(first_pn_out, min_idx, M)   # (B, M, 384)
+            pooled = segment_max(first_pn_out, min_idx, M,
+                                 counts=counts)              # (B, M, 384)
 
         if self.knnlayer is not None:
             # the kNN graph is built on the INPUT nodes, before recentering;

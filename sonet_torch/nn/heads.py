@@ -11,6 +11,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.gather import gather_by_segment, permute_points
+from ..parallel import collectives
 from .encoder import EncoderOutput, layer_kw, spatial_dim
 from .layers import PointLayer
 
@@ -85,14 +86,16 @@ class SegmenterHead(nn.Module):
         if cfg.som_k >= 2:
             widths.append(512)
         widths += [cfg.feature_num, cfg.feature_num]
+        # every layer runs on each rank's points under a mesh
         kw = dict(activation=cfg.activation, normalization=cfg.normalization,
-                  **layer_kw(cfg))
+                  sharded_points=True, **layer_kw(cfg))
         self.layer1 = PointLayer(widths, 1024, generator, **kw)
         self.layer2 = PointLayer(1024, 512, generator, **kw)
         self.layer3 = PointLayer(512, 256, generator, **kw)
         self.layer4 = PointLayer(256, 128, generator, **kw)
         self.layer5 = PointLayer(128, cfg.classes, generator, activation=None,
-                                 normalization=None, **layer_kw(cfg))
+                                 normalization=None, sharded_points=True,
+                                 **layer_kw(cfg))
 
     def forward(self, enc: EncoderOutput, label: torch.Tensor,
                 epoch: Optional[int] = None,
@@ -102,8 +105,11 @@ class SegmenterHead(nn.Module):
         B, kN, _ = enc.x_stack.shape
         N = kN // self.k
 
+        # under a mesh the node maps and the global feature are node-level
+        # (the same on every points rank) and meet this rank's points here
         def to_points(node_feat):
-            return gather_by_segment(node_feat, enc.min_idx, enc.onehot)
+            return gather_by_segment(collectives.to_points(node_feat),
+                                     enc.min_idx, enc.onehot)
 
         label_onehot = F.one_hot(label.long(), NUM_SHAPE_CATEGORIES).to(
             enc.x_stack.dtype)                                   # (B, 16)
@@ -114,7 +120,8 @@ class SegmenterHead(nn.Module):
                   to_points(enc.first_pn_out_masked_max)]
         if enc.knn_feature is not None:
             parts.append(to_points(enc.knn_feature))
-        parts += [to_points(enc.final_pn_out), enc.feature]
+        parts += [to_points(enc.final_pn_out),
+                  collectives.to_points(enc.feature)]
 
         h = self.layer1(*parts, epoch=epoch)
         h = self.layer2(h, epoch=epoch)
@@ -126,7 +133,8 @@ class SegmenterHead(nn.Module):
         if enc.inv_perm is not None:
             h = permute_points(h, enc.inv_perm, enc.perm)
 
-        # average the k stacked copies (copy-major) back to N points
+        # average the k stacked copies (copy-major) back to N points (this
+        # rank's N / P under a mesh: it stacked its own points)
         h = h.reshape(B, self.k, N, -1).mean(1)                  # (B, N, 256)
 
         h = self.layer4(h, epoch=epoch)

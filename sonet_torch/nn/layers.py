@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gather import knn_gather
+from ..parallel import collectives
 
 
 def activation_fn(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -144,14 +145,23 @@ class BatchNorm(nn.Module):
     (one read of the input), as in the JAX package; running statistics
     ``r = (1 - m) r + m batch`` with the unbiased variance, where
     ``m = max(momentum * decay^(epoch // step), 0.01)`` from epoch 1 on when
-    ``momentum_decay_step`` is set, else ``momentum``."""
+    ``momentum_decay_step`` is set, else ``momentum``.
+
+    Under a mesh (``parallel.collectives.use_mesh``) the training
+    statistics are the global ones, as GSPMD computes them for the JAX
+    package: the sums are all-reduced over ``data`` and, for a layer on
+    each rank's points (``sharded_points``), over ``points`` too; the row
+    count ``n`` (and with it the two-pass / one-pass choice) is the
+    global one.  Two-pass takes a second all-reduce.  Every rank then
+    updates its running statistics with the same values."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1,
                  momentum_decay_step: Optional[int] = None,
-                 momentum_decay: float = 0.6):
+                 momentum_decay: float = 0.6, sharded_points: bool = False):
         super().__init__()
         self.eps = eps
+        self.sharded_points = sharded_points
         self.momentum = momentum
         self.momentum_decay_step = momentum_decay_step
         self.momentum_decay = momentum_decay
@@ -174,11 +184,26 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             n = math.prod(x.shape[:-1])
-            mean = xf.mean(axes)
-            if n < 8192:
-                var = (xf - mean).square().mean(axes)
+            mesh_axes = ("data", "points") if self.sharded_points else ("data",)
+            ranks = math.prod(collectives.axis_size(a) for a in mesh_axes)
+            if ranks == 1:
+                mean = xf.mean(axes)
+                if n < 8192:
+                    var = (xf - mean).square().mean(axes)
+                else:
+                    var = xf.square().mean(axes) - mean.square()
             else:
-                var = xf.square().mean(axes) - mean.square()
+                n *= ranks
+                if n < 8192:
+                    mean = collectives.sum_over(xf.sum(axes), mesh_axes) / n
+                    var = collectives.sum_over(
+                        (xf - mean).square().sum(axes), mesh_axes) / n
+                else:
+                    sums = collectives.sum_over(
+                        torch.stack([xf.sum(axes), xf.square().sum(axes)]),
+                        mesh_axes) / n
+                    mean = sums[0]
+                    var = sums[1] - mean.square()
             with torch.no_grad():
                 m = self.momentum_at(epoch)
                 unbiased = var * (n / max(n - 1, 1))
@@ -218,7 +243,10 @@ class PointLayer(nn.Module):
     axis (``normalization`` is "batch", "instance" or None).  Given
     a sequence of input widths it acts on the virtual concatenation of as
     many inputs (``ConcatDense``).  ``momentum``, ``bn_momentum_decay_step``
-    and ``bn_momentum_decay`` configure the BatchNorm."""
+    and ``bn_momentum_decay`` configure the BatchNorm.  ``sharded_points``
+    marks a layer that runs on each rank's points under a mesh: its
+    BatchNorm reduces over ``points`` too and its parameters' gradients
+    are partial along ``points`` (``parallel.collectives.sync_grads``)."""
 
     def __init__(self, in_features: int | Sequence[int], features: int,
                  generator: torch.Generator,
@@ -227,11 +255,13 @@ class PointLayer(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None,
                  momentum: float = 0.1,
                  bn_momentum_decay_step: Optional[int] = None,
-                 bn_momentum_decay: float = 0.6):
+                 bn_momentum_decay: float = 0.6,
+                 sharded_points: bool = False):
         super().__init__()
         if normalization not in (None, "batch", "instance"):
             raise NotImplementedError(f"normalization={normalization!r}")
         bn = normalization == "batch"
+        self.sharded_points = sharded_points
         if isinstance(in_features, int):
             self.Dense_0 = Dense(in_features, features, generator,
                                  compute_dtype, stop_bias_grad=bn)
@@ -240,7 +270,8 @@ class PointLayer(nn.Module):
                                        compute_dtype, stop_bias_grad=bn)
         self.BatchNorm_0 = (BatchNorm(features, momentum=momentum,
                                       momentum_decay_step=bn_momentum_decay_step,
-                                      momentum_decay=bn_momentum_decay)
+                                      momentum_decay=bn_momentum_decay,
+                                      sharded_points=sharded_points)
                             if bn else None)
         self.InstanceNorm_0 = (InstanceNorm(features)
                                if normalization == "instance" else None)

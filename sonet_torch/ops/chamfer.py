@@ -10,6 +10,15 @@ a CUDA device that scatter-add uses atomics, so its float32 sums may
 differ in their last bits from run to run.
 
 ``argmin`` returns the first minimum, on both packages.
+
+Under a mesh whose ``points`` axis is split (``parallel/``) the input
+cloud ``gt_pc`` is this rank's block and the reconstruction is the same
+on every points rank.  A predicted point's nearest input point is the
+MIN over the ranks, its first occurrence in the global order on a tie
+(the lowest points rank holding the minimum, then its first index), as
+``argmin`` over the whole cloud picks; the gt -> predict means are this
+rank's sums over its points, summed over ``points`` and divided by the
+global count.
 """
 
 from __future__ import annotations
@@ -17,7 +26,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel import collectives
 from .pairwise import pairwise_sqdist
 
 
@@ -40,24 +51,52 @@ def _take_points(pc: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(pc, 1, idx[..., None].expand(-1, -1, pc.shape[-1]))
 
 
+def _first_min_over_points(dmin: torch.Tensor,
+                           sel: torch.Tensor) -> torch.Tensor:
+    """Of each rank's local minimum ``dmin`` (B, P) and its point ``sel``
+    (B, P, 3), the point of the global minimum, the lowest points rank's
+    on a tie, on every points rank (no gradient: the input cloud has
+    none)."""
+    MIN, P = dist.ReduceOp.MIN, collectives.axis_size("points")
+    here = collectives.axis_index("points")
+    gmin = collectives.all_reduce(dmin, ("points",), op=MIN)
+    cand = torch.where(dmin == gmin, here, P)
+    winner = collectives.all_reduce(cand, ("points",), op=MIN)
+    mine = (winner == here)[..., None]
+    return collectives.all_reduce(torch.where(mine, sel.detach(), 0.0),
+                                  ("points",))
+
+
 def chamfer(predict_pc: torch.Tensor, gt_pc: torch.Tensor) -> ChamferResult:
     """Bidirectional 1-NN Chamfer distance; predict_pc (B, P, 3), gt_pc
-    (B, N, 3), channel-last."""
+    (B, N, 3), channel-last (under a split points axis, N is this rank's
+    part: see the module docstring)."""
+    split = collectives.axis_size("points") > 1
     # the distances only feed the argmins: no graph is kept for them
     d = pairwise_sqdist(predict_pc.detach(), gt_pc.detach())    # (B, P, N)
 
     # predict -> gt: the nearest gt point of each predicted point
-    sel_gt = _take_points(gt_pc, d.argmin(-1))                  # (B, P, 3)
+    if split:
+        dmin, arg = d.min(-1)                                   # first min
+        sel_gt = _first_min_over_points(dmin, _take_points(gt_pc, arg))
+    else:
+        sel_gt = _take_points(gt_pc, d.argmin(-1))              # (B, P, 3)
     fwd_elem = robust_norm(sel_gt - predict_pc)
 
     # gt -> predict: the nearest predicted point of each gt point
-    sel_pred = _take_points(predict_pc, d.argmin(-2))           # (B, N, 3)
+    sel_pred = _take_points(collectives.to_points(predict_pc),
+                            d.argmin(-2))                       # (B, N, 3)
     bwd_elem = robust_norm(sel_pred - gt_pc)
 
     forward_loss = fwd_elem.mean()
-    backward_loss = bwd_elem.mean()
     forward_array = fwd_elem.mean(-1)
-    backward_array = bwd_elem.mean(-1)
+    if split:
+        n = gt_pc.shape[1] * collectives.axis_size("points")
+        backward_array = collectives.reduce_points(bwd_elem.sum(-1)) / n
+        backward_loss = backward_array.mean()
+    else:
+        backward_loss = bwd_elem.mean()
+        backward_array = bwd_elem.mean(-1)
     return ChamferResult(loss=forward_loss + backward_loss,
                          forward_loss=forward_loss,
                          backward_loss=backward_loss,

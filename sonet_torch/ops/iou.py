@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel import collectives
+
 # 16 ShapeNetPart categories -> their part label ids
 PART_LABEL = [
     [0, 1, 2, 3], [4, 5], [6, 7], [8, 9, 10, 11], [12, 13, 14, 15],
@@ -45,8 +47,9 @@ def iou_per_shape(seg_pred: torch.Tensor, seg_gt: torch.Tensor,
 
     gt = seg_gt[:, None, :] == parts[:, :, None]           # (B, MP, N)
     pr = seg_pred[:, None, :] == parts[:, :, None]
-    inter = (gt & pr).sum(-1).float()
-    union = (gt | pr).sum(-1).float()
+    # under a split points axis: the counts over every rank's points
+    inter = collectives.reduce_points((gt & pr).sum(-1).float())
+    union = collectives.reduce_points((gt | pr).sum(-1).float())
     iou = torch.where(union == 0, 1.0, inter / (union + 1e-4))
     iou = torch.where(valid, iou, 0.0)
     return iou.sum(-1) / valid.sum(-1)

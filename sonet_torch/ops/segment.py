@@ -39,7 +39,8 @@ def _take_rows(table: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
 
 def route_max_grad(data: torch.Tensor, seg_ids: torch.Tensor,
                    out: torch.Tensor, counts: torch.Tensor, g: torch.Tensor,
-                   point0_idx: torch.Tensor | None = None) -> torch.Tensor:
+                   point0_idx: torch.Tensor | None = None,
+                   reduce_ties=None) -> torch.Tensor:
     """Gradient of a segment max with respect to ``data`` (B, N, C), given
     the forward's output ``out`` (B, M, C) in ``data.dtype``, the node
     ``counts`` (B, M) and the output cotangent ``g`` (B, M, C).
@@ -50,6 +51,11 @@ def route_max_grad(data: torch.Tensor, seg_ids: torch.Tensor,
     forwarded the feature at ``point0_idx`` (B,) (default position 0), so
     its cotangent goes there.  bf16 data routes through bf16 one-hot
     products (exact: one 1.0 per row), float32 data through gathers.
+
+    Under a points mesh (``ops.segment_fast.windowed_vals_sharded``)
+    ``data`` is this rank's part of the points and ``reduce_ties`` sums
+    the (B, M, C) tie counts over the ``points`` ranks, since ties split
+    the cotangent over the whole node, not over this rank's slice.
     """
     M = out.shape[1]
     bf16 = data.dtype == torch.bfloat16
@@ -64,6 +70,8 @@ def route_max_grad(data: torch.Tensor, seg_ids: torch.Tensor,
     # tie counts per (node, channel), summed in float32 and rounded so
     # that the division below is exact
     ties = torch.round(torch.bmm(onehot.float().transpose(1, 2), eq.float()))
+    if reduce_ties is not None:
+        ties = reduce_ties(ties)
     empty = (counts == 0)[..., None]                          # (B, M, 1)
     g = g.float()
     # divide per node before routing: one (B, N, C) product, not two
@@ -108,9 +116,31 @@ class _SegmentMax(torch.autograd.Function):
         return route_max_grad(data, seg_ids, out, counts, g), None, None
 
 
+def scatter_vals(data: torch.Tensor, seg_ids: torch.Tensor,
+                 num_segments: int) -> torch.Tensor:
+    """The scatter counterpart of ``windowed_vals``: f32 (B, M, C) per-node
+    maxima, -3e38 for an empty node."""
+    B, N, C = data.shape
+    idx = seg_ids.long()[..., None].expand(B, N, C)
+    out = torch.full((B, num_segments, C), -3.0e38, dtype=torch.float32,
+                     device=data.device)
+    return out.scatter_reduce(1, idx, data.float(), reduce="amax",
+                              include_self=True)
+
+
 def segment_max(data: torch.Tensor, seg_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+                num_segments: int, *, counts: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """Segment max by scatter: data (B, N, C), seg_ids (B, N) -> (B, M, C)
     in ``data.dtype``; an empty node takes data[:, 0].  Differentiable in
-    ``data`` through ``route_max_grad``."""
+    ``data`` through ``route_max_grad``.  Under a mesh in effect whose
+    ``points`` axis is split, ``data`` is this rank's part of the points, ``counts``
+    the global (B, M) occupancy, and the maxima are combined over the
+    ranks as ``ops.segment_fast.segment_max_fast`` combines its kernel's
+    (``scatter_vals`` in the kernel's place)."""
+    from ..parallel import collectives
+    if collectives.axis_size("points") > 1:
+        from .segment_fast import segment_max_sharded
+        return segment_max_sharded(data, seg_ids, num_segments, counts,
+                                   None, scatter_vals)
     return _SegmentMax.apply(data, seg_ids, num_segments)

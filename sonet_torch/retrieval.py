@@ -23,7 +23,7 @@ from .train.graphs import StepGraph
 
 
 def extract_scores(eval_step, state, loader, device_batch_fn,
-                   scan_chunk: int = 1):
+                   scan_chunk: int = 1, mesh=None):
     """Forward every shape of ``loader`` -> (scores (T, C), labels (T,),
     ids (T,)), numpy, the padding of each batch (its ``valid``) dropped.
 
@@ -34,15 +34,21 @@ def extract_scores(eval_step, state, loader, device_batch_fn,
     once a batch, as the JAX package's is a jitted program; on the CPU it
     runs eagerly.  Scores are fetched once every ``scan_chunk`` batches
     (the JAX package runs that many batches as one ``lax.scan`` program
-    and fetches once); the result does not depend on it."""
+    and fetches once); the result does not depend on it.  Under a mesh
+    (``eval_step`` made with it) each rank scores its block of every batch
+    and the scores are gathered over ``data``: every rank gets them all."""
+    from .parallel import shard_batch
+    from .parallel.distributed import all_gather
     device = next(state.model.parameters()).device
     graph = StepGraph(lambda **batch: eval_step(state, batch)["score"],
-                      device)
+                      device, mesh=mesh)
     scores, labels, ids, pending = [], [], [], []
 
     def fetch():
         if pending:
-            got = torch.stack([p for p, _ in pending]).float().cpu().numpy()
+            got = all_gather(torch.stack([p for p, _ in pending]),
+                             ("data",), mesh, lead=1)
+            got = got.float().cpu().numpy()
             scores.extend(g[:valid] for g, (_, valid) in zip(got, pending))
             pending.clear()
 
@@ -51,7 +57,8 @@ def extract_scores(eval_step, state, loader, device_batch_fn,
         item_ids = batch.pop("id", None)
         labels.append(np.asarray(batch["label"])[:valid])
         # the graph's output is overwritten by the next replay
-        pending.append((graph(**device_batch_fn(batch)).clone(), valid))
+        pending.append((graph(**device_batch_fn(shard_batch(batch, mesh)))
+                        .clone(), valid))
         if len(pending) >= max(scan_chunk, 1):
             fetch()
         if item_ids is not None:

@@ -22,8 +22,14 @@ which switches it to train mode, changes none of the engine's answers.
 ``ServingEngine.from_run`` restores a finished run (its ``config.json``
 and the newest checkpoint under ``ckpt/``).  ``start_microbatch`` turns on
 the request micro-batcher: concurrent requests smaller than the batch
-share one dispatch.  Serving over a device mesh arrives with a later
-slice.
+share one dispatch.
+
+``from_run(mesh_shape=...)`` serves over a (data, points) mesh of the
+processes of a ``--distributed`` run (``parallel/``): every rank calls
+``predict`` with the same inputs, keeps its block of each dispatch, runs
+the sharded forward and gathers the output, so every rank returns the
+whole answer.  Over gloo (ranks sharing a card) the forward runs eagerly
+(``train.graphs.eager_by_rule``).
 
 Artifacts (``export_run``, ``load_exported``,
 ``ServingEngine.from_artifact``): a finished run's eval forward traced by
@@ -98,7 +104,10 @@ from . import train
 from .config import Config, load_config
 from .device import resolve_device
 from .nn.encoder import resolve_pooling, spatial_dim
-from .train.graphs import StepGraph
+from .parallel import collectives
+from .parallel.distributed import all_gather
+from .parallel import mesh as pmesh
+from .train.graphs import StepGraph, eager_by_rule
 
 ARTIFACT_BLOB = "model.pt2"
 ARTIFACT_MANIFEST = "manifest.json"
@@ -173,18 +182,19 @@ class _ServeModule(nn.Module):
 def _restore_run(run_dir: str, batch_size: Optional[int] = None,
                  checkpoint: Optional[str] = None,
                  device: str | torch.device = "cuda",
-                 pooling: Optional[str] = None):
+                 pooling: Optional[str] = None, mesh=None):
     """Restore a finished run for serving: ``(cfg, model, state, ckpt)``,
     from ``run_dir/config.json`` and ``checkpoint`` (default: the newest
     under ``run_dir/ckpt``), on ``device``, with ``pooling`` in place of
-    the run's when one is given."""
+    the run's when one is given; ``mesh`` is the serving mesh, whatever
+    the run trained on."""
     cfg = load_config(os.path.join(run_dir, "config.json"))
     if batch_size:
         cfg = cfg.replace(batch_size=batch_size)
-    cfg = cfg.replace(mesh_shape=(1, 1))
+    cfg = cfg.replace(mesh_shape=pmesh.mesh_shape(mesh), distributed="")
     if pooling:
         cfg = cfg.replace(pooling=pooling)
-    state = train.init_state(cfg, device=device)
+    state = train.init_state(cfg, device=device, mesh=mesh)
     ckpt = checkpoint or train.latest_checkpoint(os.path.join(run_dir, "ckpt"))
     if ckpt is None:
         raise FileNotFoundError(f"no checkpoint found under {run_dir}/ckpt")
@@ -192,13 +202,15 @@ def _restore_run(run_dir: str, batch_size: Optional[int] = None,
     return cfg, state.model, state, ckpt
 
 
-def _host_call(forward: Callable, dev: torch.device) -> Callable:
+def _host_call(forward: Callable, dev: torch.device,
+               mesh=None) -> Callable:
     """numpy arrays -> numpy float32 output of ``forward`` (tensors on
     ``dev`` -> a float32 tensor).  On a card ``forward`` is a ``StepGraph``
     replay over pinned host buffers, one graph (and one set of buffers) a
     batch size; the output is copied out before the call returns.  The
-    graph is the function's ``graph`` attribute (None on the CPU)."""
-    if dev.type != "cuda":
+    graph is the function's ``graph`` attribute (None where the forward
+    runs eagerly: on the CPU, and over a gloo ``mesh``)."""
+    if eager_by_rule(dev, mesh):
         def call(*arrays):
             tensors = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                        for a in arrays]
@@ -424,6 +436,30 @@ def load_exported(artifact_dir: str,
     return fn, manifest
 
 
+def _mesh_call(serve: Callable, cfg: Config, dev: torch.device,
+               mesh) -> Callable:
+    """``_host_call`` over a mesh: the global batch's arrays -> this
+    rank's block (``parallel.shard_batch``) -> the forward over the mesh
+    -> the output gathered over the ranks (per-point scores over both
+    axes), the whole answer on every rank."""
+    names = [n for n, _, _ in input_signature(cfg, cfg.batch_size)]
+    axes = ("data", "points") if cfg.task == "segment" else ("data",)
+
+    def forward(*tensors):
+        with collectives.use_mesh(mesh):
+            out = serve(*tensors).float()
+        return all_gather(out, axes, mesh)
+
+    inner = _host_call(forward, dev, mesh)
+
+    def call(*arrays):
+        b = pmesh.shard_batch(dict(zip(names, arrays)), mesh)
+        return inner(*(b[n] for n in names))
+
+    call.graph = inner.graph
+    return call
+
+
 class ServingEngine:
     """Request-level serving wrapper over a fixed-batch forward.
 
@@ -475,24 +511,41 @@ class ServingEngine:
     @classmethod
     def from_run(cls, run_dir: str, batch_size: Optional[int] = None,
                  checkpoint: Optional[str] = None,
-                 device: str | torch.device = "cuda") -> "ServingEngine":
+                 device: str | torch.device = "cuda",
+                 mesh_shape=None) -> "ServingEngine":
         """Serve a finished run: the model of ``run_dir/config.json`` with
         the weights of ``checkpoint`` (default: the newest under
         ``run_dir/ckpt``), on ``device``, at ``batch_size`` (default: the
-        run's).  Raises when ``device`` is ``cuda`` and there is no card."""
-        dev = resolve_device(device)
+        run's).  Raises when ``device`` is ``cuda`` and there is no card.
+
+        ``mesh_shape`` (data[, points], or its text) serves over a mesh
+        of the processes of a process group brought up first
+        (``parallel.maybe_init_distributed``), by the rule of
+        ``parallel.mesh.setup_mesh``: with none given, data parallel over
+        every process of the group, and one process outside a group.  The state is replicated,
+        each dispatch's items split over 'data' and its points over
+        'points' (the module docstring); ``device`` ``cuda`` is then this
+        rank's card."""
+        _, mesh, dev = pmesh.setup_mesh(
+            Config(mesh_shape=pmesh.mesh_shape_of(mesh_shape)), device)
         cfg, model, _, ckpt = _restore_run(run_dir, batch_size, checkpoint,
-                                           device=dev)
+                                           device=dev, mesh=mesh)
+        if mesh is not None:
+            pmesh.check_mesh_divisible(pmesh.mesh_shape(mesh),
+                                       cfg.batch_size, cfg.input_pc_num)
         return cls._serving(model, cfg, dev, cfg.batch_size,
-                            {"checkpoint": ckpt, "source": "run"})
+                            {"checkpoint": ckpt, "source": "run"}, mesh)
 
     @classmethod
     def _serving(cls, model: nn.Module, cfg: Config, dev: torch.device,
-                 B: int, origin: dict) -> "ServingEngine":
+                 B: int, origin: dict, mesh=None) -> "ServingEngine":
         # a snapshot: the caller may go on training its module
         model = copy.deepcopy(model).to(dev)
         serve = build_serve_fn(model, cfg)
-        fn = _host_call(lambda *tensors: serve(*tensors).float(), dev)
+        if mesh is None:
+            fn = _host_call(lambda *tensors: serve(*tensors).float(), dev)
+        else:
+            fn = _mesh_call(serve, cfg, dev, mesh)
 
         manifest = {
             "task": cfg.task,
@@ -503,6 +556,8 @@ class ServingEngine:
             "device": str(dev),
             "pooling": resolve_pooling(cfg, dev),
             "classes": cfg.classes,
+            "mesh_shape": (list(pmesh.mesh_shape(mesh)) if mesh is not None
+                           else None),
             **origin,
         }
         return cls(fn, manifest)

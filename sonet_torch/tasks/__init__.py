@@ -6,8 +6,9 @@ autoencoder/train.py and shrec16/test.py), and the port's batch inference
 
 Each module has ``main(argv=None)``, reached as ``sonet-torch <command>``
 (``sonet_torch.cli``) or ``python -m sonet_torch.tasks.<name>``.  Every
-driver takes ``--device {cuda,cpu}`` (default ``cuda``; without a card
-``cuda`` raises) besides the ``Config`` flags of ``config.parse_args``.
+driver takes ``--device {cuda,cuda:N,cpu}`` (default ``cuda``; without a
+card ``cuda`` raises; the ranks of a ``--distributed`` run that name a
+card share it) besides the ``Config`` flags of ``config.parse_args``.
 Pictures (eval visuals, the retrieval gallery) need matplotlib: without
 it a driver says so when it starts and leaves them out.
 """
@@ -20,11 +21,22 @@ __all__ = ["autoencode", "classify", "export", "infer", "partseg",
            "reproduce", "retrieve", "serve"]
 
 
+def _device_name(text: str) -> str:
+    head, _, index = text.partition(":")
+    if text in ("cuda", "cpu") or (head == "cuda" and index.isdigit()):
+        return text
+    raise argparse.ArgumentTypeError(
+        f"invalid device {text!r} (cuda, cuda:N or cpu)")
+
+
 def device_parser() -> argparse.ArgumentParser:
     """The flags a driver reads before ``config.parse_args``: ``--device``."""
     p = argparse.ArgumentParser(add_help=False)
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where to run (default cuda; never falls back)")
+    p.add_argument("--device", default="cuda", type=_device_name,
+                   help="cuda (each rank of a --distributed run its own "
+                        "card, by LOCAL_RANK), cuda:N (that card, shared "
+                        "by the ranks) or cpu; default cuda, never falls "
+                        "back")
     return p
 
 

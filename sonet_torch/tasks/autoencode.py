@@ -7,6 +7,7 @@ of the JAX package's ``tasks/autoencode.py``).
 from __future__ import annotations
 
 from ..config import parse_args
+from ..parallel import is_main
 from ..train.trainer import Trainer
 from . import device_parser, pictures
 
@@ -20,7 +21,8 @@ def main(argv=None):
     # threshold None = save on every improvement
     final = trainer.fit(save_threshold=None,
                         visualize_every=5 if viz else 0)
-    print({"final": final, "best": trainer.best_metric})
+    if is_main():                # one process of a --distributed run
+        print({"final": final, "best": trainer.best_metric})
     return final
 
 

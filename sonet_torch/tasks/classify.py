@@ -8,6 +8,7 @@ shrec16/train.py; port of the JAX package's ``tasks/classify.py``).
 from __future__ import annotations
 
 from ..config import parse_args
+from ..parallel import is_main
 from ..train.trainer import Trainer
 from . import device_parser
 
@@ -25,7 +26,8 @@ def main(argv=None):
         threshold = 0.930 if cfg.classes == 10 else 0.918
     trainer = Trainer(cfg, device=known.device)
     final = trainer.fit(save_threshold=threshold)
-    print({"final": final, "best": trainer.best_metric})
+    if is_main():                # one process of a --distributed run
+        print({"final": final, "best": trainer.best_metric})
     return final
 
 

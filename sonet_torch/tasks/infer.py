@@ -13,6 +13,7 @@ The reference has no inference surface beyond the SHREC test script
 
 Outputs in --out (default <run>/infer), as the JAX package writes them:
   * classify/retrieve: ``predictions.csv`` (index,label,pred,correct)
+    and, with --dump_arrays, per-item class scores ``score_%06d.npy``
   * segment:  ``predictions.csv`` (index,label,iou,seg_accuracy) and,
     with --dump_arrays, per-item predicted part labels ``pred_%06d.npy``
   * autoencode: ``predictions.csv`` (index,chamfer,chamfer_fwd,
@@ -74,8 +75,14 @@ def main(argv=None):
     ap.add_argument("--dataroot", default=None)
     ap.add_argument("--dump_arrays", action="store_true")
     ap.add_argument("--mesh_shape", default=None,
-                    help="a device mesh, e.g. '4,2' (more than one device "
-                         "is not ported yet)")
+                    help="a (data, points) mesh over the processes of a "
+                         "--distributed run, e.g. '4,2' (default: data "
+                         "parallel over them)")
+    ap.add_argument("--distributed", default="",
+                    help="'auto' (torchrun's environment) or "
+                         "'HOST:PORT,NPROC,PID'; every process streams the "
+                         "split and keeps its block of each batch, process "
+                         "0 writes the files")
     ap.add_argument("--input_pipeline", default=None,
                     choices=["host", "native", "device"],
                     help="batch assembly (default: the run's setting; "
@@ -89,7 +96,9 @@ def main(argv=None):
     from .. import train
     from ..config import load_config
     from ..data.pipeline import BatchLoader
-    from ..device import refuse_mesh, resolve_device
+    from ..parallel import is_main, shard_batch
+    from ..parallel.distributed import all_gather
+    from ..parallel.mesh import parse_mesh_shape, setup_mesh
     from ..train.graphs import StepGraph
     from ..train.trainer import build_dataset
 
@@ -98,11 +107,17 @@ def main(argv=None):
         cfg = cfg.replace(batch_size=args.batch_size)
     if args.dataroot:
         cfg = cfg.replace(dataroot=args.dataroot)
-    refuse_mesh(args.mesh_shape, "infers")
-    cfg = cfg.replace(input_pipeline=_pipeline(args, cfg), mesh_shape=(1, 1))
-    dev = resolve_device(args.device)
+    try:
+        shape = parse_mesh_shape(args.mesh_shape) if args.mesh_shape else (1, 1)
+    except ValueError as e:
+        raise SystemExit(f"--mesh_shape: {e}")
+    cfg = cfg.replace(input_pipeline=_pipeline(args, cfg), mesh_shape=shape,
+                      distributed=args.distributed)
+    cfg, mesh, dev = setup_mesh(cfg, args.device)
+    main_rank = is_main()
     out_dir = args.out or os.path.join(args.run, "infer")
-    os.makedirs(out_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(out_dir, exist_ok=True)
 
     dataset = build_dataset(cfg, args.mode, dev)
     loader = BatchLoader(dataset, cfg.batch_size, shuffle=False,
@@ -111,13 +126,13 @@ def main(argv=None):
     # moves the loader to its next epoch and so the items' point draws;
     # skipping that pass streams the same points as it does
     loader.skip_epoch()
-    state = train.init_state(cfg, device=dev, seed=cfg.seed)
+    state = train.init_state(cfg, device=dev, seed=cfg.seed, mesh=mesh)
     ckpt = args.checkpoint or train.latest_checkpoint(
         os.path.join(args.run, "ckpt"))
     if ckpt is None:
         raise SystemExit(f"no checkpoint found under {args.run}/ckpt")
     train.restore_checkpoint(ckpt, state)
-    _, eval_step = train.make_steps(cfg, 1)
+    _, eval_step = train.make_steps(cfg, 1, mesh=mesh)
     # small splits still get >= 2 chunks: the first is left out of the time
     K = max(1, min(args.scan_chunk, (len(loader) + 1) // 2))
 
@@ -125,12 +140,15 @@ def main(argv=None):
         """Host arrays -> tensors for the step: pinned on a card, copied
         into the graph's static buffers on the compute stream."""
         out = {}
-        for k, v in batch.items():
+        for k, v in shard_batch(batch, mesh).items():
             t = torch.from_numpy(np.ascontiguousarray(v))
             out[k] = t.pin_memory() if dev.type == "cuda" else t
         return out
 
-    graph = StepGraph(lambda **batch: eval_step(state, batch), dev)
+    # under a mesh: each rank's block of the outputs, gathered in fetch()
+    graph = StepGraph(lambda **batch: eval_step(state, batch), dev,
+                      mesh=mesh)
+    point_keys = {"score"} if cfg.task == "segment" else set()
 
     rows = []
     sums, seen = {}, 0
@@ -150,12 +168,15 @@ def main(argv=None):
             for i in range(valid):
                 rows.append([base + i, int(batch["label"][i]), int(pred[i]),
                              int(pred[i] == batch["label"][i])])
+                if args.dump_arrays and main_rank:
+                    np.save(os.path.join(out_dir, f"score_{base+i:06d}.npy"),
+                            m["score"][i].astype(np.float32))
         elif cfg.task == "segment":
             pred = np.argmax(m["score"], -1)
             for i in range(valid):
                 rows.append([base + i, int(batch["label"][i]),
                              float(m["iou_i"][i]), float(m["correct_i"][i])])
-                if args.dump_arrays:
+                if args.dump_arrays and main_rank:
                     np.save(os.path.join(out_dir, f"pred_{base+i:06d}.npy"),
                             pred[i].astype(np.int32))
         else:  # autoencode
@@ -163,7 +184,7 @@ def main(argv=None):
                 rows.append([base + i, float(m["loss_i"][i]),
                              float(m["chamfer_fwd_i"][i]),
                              float(m["chamfer_bwd_i"][i])])
-                if args.dump_arrays:
+                if args.dump_arrays and main_rank:
                     np.save(os.path.join(out_dir, f"recon_{base+i:06d}.npy"),
                             np.asarray(m["predicted_pc"][i], np.float32))
 
@@ -171,6 +192,8 @@ def main(argv=None):
 
     def fetch(key):
         t = torch.stack([r[key] for r in results])
+        t = all_gather(t, ("data", "points") if key in point_keys
+                       else ("data",), mesh, lead=1)
         return (t if t.dtype == torch.bool else t.float()).cpu().numpy()
 
     def flush():
@@ -200,10 +223,12 @@ def main(argv=None):
     flush()
 
     dt = time.perf_counter() - t0
-    with open(os.path.join(out_dir, "predictions.csv"), "w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(_HEADER[cfg.task])
-        w.writerows(rows)
+    if main_rank:
+        with open(os.path.join(out_dir, "predictions.csv"), "w",
+                  newline="") as f:
+            w = csv.writer(f)
+            w.writerow(_HEADER[cfg.task])
+            w.writerows(rows)
 
     summary = {k: v / max(seen, 1) for k, v in sums.items()}
     name_map = {"correct": "accuracy", "loss": "loss"}
@@ -211,9 +236,10 @@ def main(argv=None):
     summary["items"] = seen
     summary["checkpoint"] = ckpt
     summary["clouds_per_sec"] = (timed / dt) if dt > 0 and timed else None
-    with open(os.path.join(out_dir, "summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
-    print(json.dumps(summary))
+    if main_rank:
+        with open(os.path.join(out_dir, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=2)
+        print(json.dumps(summary))
     return summary
 
 

@@ -7,6 +7,7 @@ port of the JAX package's ``tasks/partseg.py``).
 from __future__ import annotations
 
 from ..config import parse_args
+from ..parallel import is_main
 from ..train.trainer import Trainer
 from . import device_parser, pictures
 
@@ -19,7 +20,8 @@ def main(argv=None):
     # mIoU save threshold (part-seg/train.py:110)
     final = trainer.fit(save_threshold=0.835,
                         visualize_every=5 if viz else 0)
-    print({"final": final, "best": trainer.best_metric})
+    if is_main():                # one process of a --distributed run
+        print({"final": final, "best": trainer.best_metric})
     return final
 
 

@@ -5,6 +5,10 @@ matplotlib) and the metrics.
 
     sonet-torch retrieve --preset shrec16 --dataroot /path \\
         --checkpoint run/ckpt/step_00001234.pt [--output_dir ./retrieval]
+
+Over several processes (``--distributed``, ``--mesh_shape``) every rank
+scores its block of each batch, the scores are gathered, every rank
+ranks them and process 0 writes the files.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import torch
 from .. import retrieval, train
 from ..config import parse_args
 from ..data.pipeline import BatchLoader
-from ..device import refuse_mesh, resolve_device
+from ..parallel import is_main
+from ..parallel.mesh import setup_mesh
 from ..train.trainer import build_dataset
 from . import device_parser, pictures
 
@@ -29,17 +34,17 @@ def main(argv=None):
                      help="full train-state checkpoint to load")
     known, rest = pre.parse_known_args(argv)
     cfg = parse_args(rest, preset="shrec16")
-    refuse_mesh(cfg.mesh_shape, "ranks")
-    dev = resolve_device(known.device)
-    gallery = pictures("the retrieval gallery")
+    cfg, mesh, dev = setup_mesh(cfg, known.device)
+    main_rank = is_main()
+    gallery = pictures("the retrieval gallery") if main_rank else False
 
     test_set = build_dataset(cfg, "test", dev)
     loader = BatchLoader(test_set, cfg.batch_size, shuffle=False,
                          drop_last=False, pad_last=True)
-    state = train.init_state(cfg, device=dev, seed=cfg.seed)
+    state = train.init_state(cfg, device=dev, seed=cfg.seed, mesh=mesh)
     if known.checkpoint:
         train.restore_checkpoint(known.checkpoint, state)
-    _, eval_step = train.make_steps(cfg, 1)
+    _, eval_step = train.make_steps(cfg, 1, mesh=mesh)
 
     def device_batch(b):
         return {k: torch.from_numpy(v).to(dev) for k, v in b.items()
@@ -47,13 +52,15 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     scores, labels, ids = retrieval.extract_scores(eval_step, state, loader,
-                                                   device_batch)
+                                                   device_batch, mesh=mesh)
     t1 = time.perf_counter()
     results = retrieval.rank_all(torch.from_numpy(scores).to(dev))
     t2 = time.perf_counter()
+    metrics = retrieval.retrieval_metrics(results, labels)
+    if not main_rank:
+        return metrics
     print(f"scored {len(scores)} shapes in {(t1 - t0) * 1e3:.4f} ms, ranked "
           f"them on {dev} in {(t2 - t1) * 1e3:.4f} ms (host clock)")
-    metrics = retrieval.retrieval_metrics(results, labels)
     retrieval.write_rank_files(results, ids, known.output_dir)
     print(f"wrote {len(results)} rank files to {known.output_dir}")
     if gallery:

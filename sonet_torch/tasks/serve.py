@@ -35,8 +35,14 @@ Graceful shutdown: SIGTERM/SIGINT puts the daemon into DRAIN mode —
 /healthz flips to 503 {"status": "draining"} (orchestrator readiness
 check), new /v1/predict requests get 503 + Retry-After, in-flight
 requests and the micro-batch queue complete normally, then the listener
-closes and the process exits 0.  See ``drain_server``.  A device mesh is
-not ported yet.
+closes and the process exits 0.  See ``drain_server``.
+
+Over a mesh (``--distributed``, ``--mesh_shape``; ``ServingEngine.from_run``
+over ``parallel/``): every process restores the run, process 0 alone
+holds the HTTP socket, and each of its dispatches is first broadcast to
+the others (``_lead``), which run the sharded forward beside it
+(``_follow``); process 0 answers.  The drain ends with a stop broadcast
+that ends every process; the others leave SIGTERM/SIGINT to process 0.
 """
 
 from __future__ import annotations
@@ -199,6 +205,57 @@ def drain_server(srv, engine, timeout_s: float = 30.0) -> bool:
     return clean
 
 
+_STOP, _DISPATCH = 0, 1
+
+
+def _broadcast_dispatch(cmd: int, arrays, engine):
+    """Process 0 -> every process: the command and, for a dispatch, the
+    arrays (of the engine's fixed input signature).  Returns what process
+    0 sent, as numpy arrays."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.distributed import current_device
+    dev = current_device()
+    head = torch.tensor([cmd], dtype=torch.int64, device=dev)
+    dist.broadcast(head, src=0)
+    if int(head.item()) == _STOP:
+        return None
+    out = []
+    for i, spec in enumerate(engine.manifest["inputs"]):
+        shape = [engine.batch_size] + list(spec["shape"][1:])
+        t = (torch.from_numpy(np.ascontiguousarray(arrays[i])).to(dev)
+             if arrays is not None else
+             torch.empty(shape, dtype=getattr(torch, spec["dtype"]),
+                         device=dev))
+        dist.broadcast(t, src=0)
+        out.append(t.cpu().numpy())
+    return out
+
+
+def _lead(engine) -> None:
+    """Process 0: send every dispatch to the other processes first."""
+    inner = engine._fn
+
+    def fn(*arrays):
+        _broadcast_dispatch(_DISPATCH, arrays, engine)
+        return inner(*arrays)
+
+    fn.graph = inner.graph
+    engine._fn = fn
+
+
+def _follow(engine) -> None:
+    """The other processes: run process 0's dispatches until it stops."""
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    while True:
+        arrays = _broadcast_dispatch(_DISPATCH, None, engine)
+        if arrays is None:
+            return
+        engine._fn(*arrays)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="sonet-torch serve",
                                  parents=[device_parser()])
@@ -213,8 +270,13 @@ def main(argv=None):
                          "run's; an artifact's is fixed at export)")
     ap.add_argument("--checkpoint", default=None, help="--run only")
     ap.add_argument("--mesh_shape", default=None,
-                    help="a device mesh, e.g. '4,2' (more than one device "
-                         "is not ported yet)")
+                    help="a (data, points) mesh over the processes of a "
+                         "--distributed run, e.g. '4,2' (--run only; "
+                         "default there: data parallel over them)")
+    ap.add_argument("--distributed", default="",
+                    help="'auto' (torchrun's environment) or "
+                         "'HOST:PORT,NPROC,PID'; process 0 holds the "
+                         "socket (--run only)")
     ap.add_argument("--microbatch_ms", type=float, default=0.0,
                     help="coalesce concurrent small requests into shared "
                          "dispatches, waiting up to this many ms to fill "
@@ -231,21 +293,29 @@ def main(argv=None):
                     help="log every request")
     args = ap.parse_args(argv)
 
-    from ..device import refuse_mesh
+    from ..parallel import is_main, maybe_init_distributed
     from ..serving import ServingEngine
 
     if args.artifact:
-        if args.batch_size or args.checkpoint or args.mesh_shape:
-            raise SystemExit("--batch_size/--checkpoint/--mesh_shape only "
-                             "apply to --run (an artifact is fixed at "
-                             "export time, on one device)")
+        if (args.batch_size or args.checkpoint or args.mesh_shape
+                or args.distributed):
+            raise SystemExit("--batch_size/--checkpoint/--mesh_shape/"
+                             "--distributed only apply to --run (an "
+                             "artifact is fixed at export time, on one "
+                             "device)")
         engine = ServingEngine.from_artifact(args.artifact,
                                              device=args.device)
     else:
-        refuse_mesh(args.mesh_shape, "serves")
+        maybe_init_distributed(args.distributed, args.device)
         engine = ServingEngine.from_run(args.run, batch_size=args.batch_size,
                                         checkpoint=args.checkpoint,
-                                        device=args.device)
+                                        device=args.device,
+                                        mesh_shape=args.mesh_shape)
+        if engine.manifest["mesh_shape"] is not None:
+            if not is_main():
+                _follow(engine)
+                return 0
+            _lead(engine)
     if not args.no_warmup:
         engine.warmup()
     if args.microbatch_ms > 0:
@@ -291,6 +361,8 @@ def main(argv=None):
             drainer[0].join(args.drain_timeout_s + 5)
         else:        # programmatic shutdown (tests): drain inline
             drain_server(srv, engine, args.drain_timeout_s)
+        if engine.manifest.get("mesh_shape") is not None:
+            _broadcast_dispatch(_STOP, None, engine)   # ends the others
         print(json.dumps({"drained": True, **engine.stats()}), flush=True)
     return 0
 

@@ -20,6 +20,10 @@ tensors, so everything lands on the state's device: parameters, running
 statistics and Adam's moments beside their parameters, Adam's step
 counters where the live optimizer keeps them (on the host, unless it is
 capturable), and the live optimizer stays capturable or not.
+
+Over several processes (``parallel/``) the state is the same on every
+rank: process 0 alone writes and sweeps, the others wait for it at
+``parallel.sync``, and every rank restores from the file.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import is_main, sync
 from .state import TrainState, set_capturable
 
 _NAME = re.compile(r"^step_(\d{8,})\.pt$")
@@ -43,17 +48,20 @@ def _abs(path: str) -> str:
 def save_checkpoint(ckpt_dir: str, state: TrainState, step: int,
                     keep: int = 3) -> str:
     """Write ``state`` as ``ckpt_dir/step_<step>.pt``, keep the ``keep``
-    newest checkpoints, and return the path."""
+    newest checkpoints, and return the path (on every process; process 0
+    writes, the others wait until it has)."""
     root = _abs(ckpt_dir)
-    os.makedirs(root, exist_ok=True)
     path = os.path.join(root, f"step_{step:08d}.pt")
-    payload = {"model": state.model.state_dict(),
-               "optimizer": _eager_optimizer_state(state.optimizer),
-               "step": int(state.step)}
-    tmp = f"{path}{_TMP}{os.getpid()}"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    _gc(root, keep)
+    if is_main():
+        os.makedirs(root, exist_ok=True)
+        payload = {"model": state.model.state_dict(),
+                   "optimizer": _eager_optimizer_state(state.optimizer),
+                   "step": int(state.step)}
+        tmp = f"{path}{_TMP}{os.getpid()}"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        _gc(root, keep)
+    sync("checkpoint")
     return path
 
 

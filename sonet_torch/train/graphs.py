@@ -39,6 +39,13 @@ A capture is preceded by one eager warm-up step on a side stream (lazy
 state, library handles), after which ``snapshot``'s restore puts the
 state back, and the generators are reset to where they were.  A failed
 capture raises; nothing falls back to eager replay on a card.
+
+Steps over a mesh (``mesh=``, ``parallel/``): collectives on NCCL are
+captured with the rest of the step.  Gloo runs its collectives on the
+host, where a graph cannot hold them: a holder given a mesh on gloo runs
+its step eagerly, by that rule and not on a failure (``eager_by_rule``),
+and a capture asked for under gloo raises by name
+(``check_capturable``).
 """
 
 from __future__ import annotations
@@ -53,6 +60,24 @@ Step = Callable[[object, torch.Tensor], Dict[str, torch.Tensor]]
 
 def _no_snapshot():
     return lambda: None
+
+
+def check_capturable(mesh) -> None:
+    """Raise when ``mesh``'s collectives run on gloo: a CUDA graph cannot
+    hold a collective that runs on the host."""
+    from ..parallel.distributed import uses_gloo
+    if uses_gloo(mesh):
+        raise RuntimeError(
+            "CUDA graph capture of a step over a gloo mesh: gloo runs its "
+            "collectives on the host, which a graph cannot hold; such steps "
+            "run eagerly (train.graphs.eager_by_rule)")
+
+
+def eager_by_rule(device: torch.device, mesh) -> bool:
+    """True when a step on ``device`` over ``mesh`` runs eagerly: on the
+    CPU, and over a gloo mesh (``check_capturable``)."""
+    from ..parallel.distributed import uses_gloo
+    return torch.device(device).type != "cuda" or uses_gloo(mesh)
 
 
 def _warm_up(warm: Callable[[], Any], device: torch.device,
@@ -104,15 +129,18 @@ class StepGraph:
     ``EpochGraph``.  ``captures`` and ``replays`` count what happened.
     The inputs are tensors (on the host, pinned for an asynchronous copy,
     or on the card); the outputs are tensors, or a dict, tuple or list of
-    them, owned by the graph until the next call."""
+    them, owned by the graph until the next call.  ``mesh``: the mesh the
+    step runs over (eager over gloo, see the module docstring)."""
 
     def __init__(self, fn: Callable[..., Any], device: torch.device, *,
                  generators: Sequence[torch.Generator] = (),
                  key: Callable[[], Hashable] = lambda: None,
                  snapshot: Callable[[], Callable[[], None]] = _no_snapshot,
-                 on_replay: Callable[[], None] = lambda: None):
+                 on_replay: Callable[[], None] = lambda: None, mesh=None):
         self.fn = fn
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.eager = eager_by_rule(self.device, mesh)
         self.generators = tuple(generators)
         self.key = key
         self.snapshot = snapshot
@@ -124,6 +152,7 @@ class StepGraph:
         self._pool = None
 
     def _capture(self, sig: tuple, args, kwargs, key) -> tuple:
+        check_capturable(self.mesh)
         dev = self.device
         old = self._graphs.pop(sig, None)
         if old is not None:
@@ -150,8 +179,11 @@ class StepGraph:
         return entry
 
     def __call__(self, *args: torch.Tensor, **kwargs: torch.Tensor):
-        if self.device.type != "cuda":
-            return self.fn(*args, **kwargs)
+        if self.eager:     # host inputs go to the device, as a capture's do
+            dev = self.device
+            return self.fn(*(t.to(dev, non_blocking=True) for t in args),
+                           **{k: t.to(dev, non_blocking=True)
+                              for k, t in kwargs.items()})
         sig = (tuple((tuple(t.shape), t.dtype) for t in args),
                tuple(sorted((k, tuple(t.shape), t.dtype)
                             for k, t in kwargs.items())))
@@ -195,9 +227,11 @@ class EpochGraph:
                  generators: Sequence[torch.Generator] = (),
                  key: Callable[[], Hashable] = lambda: None,
                  snapshot: Callable[[], Callable[[], None]] = _no_snapshot,
-                 on_replay: Callable[[], None] = lambda: None):
+                 on_replay: Callable[[], None] = lambda: None, mesh=None):
         self.step = step
         self.device = torch.device(device)
+        self.mesh = mesh
+        self.eager = eager_by_rule(self.device, mesh)
         self.generators = tuple(generators)
         self.key = key
         self.snapshot = snapshot
@@ -228,6 +262,7 @@ class EpochGraph:
         self._counter.add_(1)
 
     def _capture(self, data, key) -> None:
+        check_capturable(self.mesh)
         dev = self.device
         self.reset()
 
@@ -264,7 +299,7 @@ class EpochGraph:
         ``DeviceData``); the stacked metrics (S, ...) on the host, fetched
         once."""
         table = np.ascontiguousarray(table, np.int64)
-        if self.device.type != "cuda":
+        if self.eager:
             return self._run_eager(data, table)
         S, B = table.shape
         if (self._table is None or self._table.shape[0] < S

@@ -11,6 +11,16 @@ is ``state.step // steps_per_epoch``.  Random draws (point dropout, the
 dropout masks) come from a ``torch.Generator`` the caller passes; torch
 cannot reproduce JAX's random streams, so the two agree in distribution,
 not in their bits.
+
+Under a (data, points) mesh (``mesh=``, ``parallel/``) a batch is this
+rank's block (``parallel.shard_batch``) and each step runs in
+``parallel.collectives.use_mesh``: the model's reductions are global, a
+train step's gradients are averaged over the mesh before the update
+(``collectives.sync_grads``), and the scalar metrics are the global
+batch's (the mean over ``data`` of each data rank's).  The per-item
+``*_i`` columns and the outputs stay this rank's block: the caller
+gathers them (``parallel.fetch_global``) or sums them itself.  The
+state is the same on every rank after every step.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import torch.nn.functional as F
 
 from ..config import Config
 from ..ops.chamfer import chamfer
+from ..parallel import collectives
 from ..ops.iou import iou_per_shape
 from . import losses
 from .state import TrainState
@@ -37,10 +48,13 @@ def random_point_dropout(pc: torch.Tensor, sn: Optional[torch.Tensor],
     for the whole batch, and refill the dropped slots with repeats of the
     kept points (the reference subsamples to a variable count; shapes stay
     fixed here, as in the JAX package).  The identity from a lower limit
-    of 0.99 on, which is every task's default."""
+    of 0.99 on, which is every task's default.  Under a split points
+    axis ``pc`` is this rank's block: the subset is drawn over the whole
+    cloud, as one process draws it, and the rank keeps its slots."""
     if lower_limit >= 0.99:
         return pc, sn
-    N = pc.shape[1]
+    P = collectives.axis_size("points")
+    N = pc.shape[1] * P
     dev = pc.device
     u = torch.rand((), generator=generator, device=dev)
     keep_ratio = lower_limit + (1.0 - lower_limit) * u
@@ -48,8 +62,49 @@ def random_point_dropout(pc: torch.Tensor, sn: Optional[torch.Tensor],
     perm = torch.randperm(N, generator=generator, device=dev)
     slot = torch.arange(N, device=dev)
     idx = torch.where(slot < keep_num, perm, perm[slot % keep_num])
+    if P > 1:
+        # a split points axis: every rank draws the whole cloud's subset
+        # from the same generator state, gathers the cloud and keeps the
+        # slots of its own block
+        from ..parallel.distributed import all_gather
+        mesh, n = collectives.active(), pc.shape[1]
+        p = collectives.axis_index("points")
+        idx = idx[p * n:(p + 1) * n]
+        pc = all_gather(pc, ("points",), mesh, lead=1)
+        sn = all_gather(sn, ("points",), mesh, lead=1) if sn is not None \
+            else None
     return (pc.index_select(1, idx),
             sn.index_select(1, idx) if sn is not None else None)
+
+
+def _over_mesh(train_step: Callable, eval_step: Callable, mesh
+               ) -> tuple[Callable, Callable]:
+    """The steps run inside ``use_mesh(mesh)``: the train step's gradients
+    averaged over the mesh before its update, and the scalar metrics of
+    both reduced over ``data``."""
+    if mesh is None:
+        return train_step, eval_step
+
+    def mesh_train_step(state, batch, generator=None):
+        with collectives.use_mesh(mesh):
+            state, metrics = train_step(state, batch, generator)
+            return state, {k: collectives.mean_over_data(v)
+                           for k, v in metrics.items()}
+
+    def mesh_eval_step(state, batch):
+        with collectives.use_mesh(mesh):
+            m = eval_step(state, batch)
+            return {k: (collectives.mean_over_data(v) if v.dim() == 0 else v)
+                    for k, v in m.items()}
+
+    return mesh_train_step, mesh_eval_step
+
+
+def _update(state: TrainState) -> None:
+    """The gradients averaged over the mesh in effect, then Adam."""
+    mesh = collectives.active()
+    collectives.sync_grads(state.model, mesh)
+    state.apply_gradients()
 
 
 def make_classify_steps(cfg: Config, steps_per_epoch: int
@@ -78,7 +133,7 @@ def make_classify_steps(cfg: Config, steps_per_epoch: int
                          epoch=epoch, generator=generator)
         loss = losses.cross_entropy(score, batch["label"])
         loss.backward()
-        state.apply_gradients()
+        _update(state)
         score = score.detach()
         return state, {"loss": loss.detach(),
                        "accuracy": losses.accuracy(score, batch["label"])}
@@ -124,7 +179,7 @@ def make_segment_steps(cfg: Config, steps_per_epoch: int
                          epoch=epoch, generator=generator)
         loss = losses.cross_entropy_seg(score, batch["seg"])
         loss.backward()
-        state.apply_gradients()
+        _update(state)
         score = score.detach()
         return state, {"loss": loss.detach(),
                        "seg_accuracy": losses.seg_accuracy(score,
@@ -137,10 +192,17 @@ def make_segment_steps(cfg: Config, steps_per_epoch: int
             score, _ = model(batch["pc"], batch.get("sn"), batch["node"],
                              batch["label"], batch.get("node_knn_I"))
         seg = batch["seg"]
-        loss_i = F.cross_entropy(score.transpose(1, 2), seg.long(),
-                                 reduction="none").mean(-1)          # (B,)
+        ce = F.cross_entropy(score.transpose(1, 2), seg.long(),
+                             reduction="none")                   # (B, N)
         pred = score.argmax(-1)
-        correct_i = (pred == seg).float().mean(-1)
+        right = (pred == seg).float()
+        P = collectives.axis_size("points")
+        if P == 1:
+            loss_i, correct_i = ce.mean(-1), right.mean(-1)     # (B,)
+        else:   # every rank's sums over the item's points, global count
+            n = seg.shape[1] * P
+            loss_i = collectives.reduce_points(ce.sum(-1)) / n
+            correct_i = collectives.reduce_points(right.sum(-1)) / n
         iou_i = iou_per_shape(pred, seg, batch["label"])
         return {"loss": loss_i.mean(), "seg_accuracy": correct_i.mean(),
                 "iou": iou_i.mean(), "loss_i": loss_i,
@@ -199,7 +261,7 @@ def make_autoencode_steps(cfg: Config, steps_per_epoch: int
                        epoch=epoch, generator=generator)
         loss, aux = _ae_loss(cfg, dec, pc)
         loss.backward()
-        state.apply_gradients()
+        _update(state)
         return state, {k: v.detach() for k, v in aux.items()}
 
     def eval_step(state: TrainState, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -217,9 +279,10 @@ def make_autoencode_steps(cfg: Config, steps_per_epoch: int
     return train_step, eval_step
 
 
-def make_steps(cfg: Config, steps_per_epoch: int
+def make_steps(cfg: Config, steps_per_epoch: int, mesh=None
                ) -> tuple[Callable, Callable]:
-    """(train_step, eval_step) for ``cfg.task``."""
+    """(train_step, eval_step) for ``cfg.task``, over ``mesh`` when one is
+    given (the module docstring)."""
     makers = {"classify": make_classify_steps,
               "retrieve": make_classify_steps,
               "segment": make_segment_steps,
@@ -227,4 +290,4 @@ def make_steps(cfg: Config, steps_per_epoch: int
     if cfg.task not in makers:
         raise NotImplementedError(
             f"unknown task {cfg.task!r} (have {sorted(makers)})")
-    return makers[cfg.task](cfg, steps_per_epoch)
+    return _over_mesh(*makers[cfg.task](cfg, steps_per_epoch), mesh)

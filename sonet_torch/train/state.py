@@ -93,13 +93,48 @@ def set_capturable(optimizer: torch.optim.Optimizer, flag: bool) -> None:
                     device=p.device if flag else "cpu", dtype=torch.float32)
 
 
+def snapshot(state: TrainState):
+    """A function that puts back what a train step changes: weights,
+    running statistics, Adam's state (a state first made by the step goes
+    back to zeros, which is what a fresh Adam starts from), the step and
+    the learning rates.  A captured step's warm-up runs the step once
+    between the two (``train/graphs.py``)."""
+    live = [*state.model.parameters(), *state.model.buffers()]
+    saved = [t.detach().clone() for t in live]
+    opt = {p: {k: v.clone() for k, v in s.items()}
+           for p, s in state.optimizer.state.items()}
+    step = state.step
+    lrs = [g["lr"] for g in state.optimizer.param_groups]
+
+    def restore():
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+            for p, s in state.optimizer.state.items():
+                for k, v in s.items():
+                    if p in opt:
+                        v.copy_(opt[p][k])
+                    else:
+                        v.zero_()
+        state.step = step
+        for g, lr in zip(state.optimizer.param_groups, lrs):
+            g["lr"] = lr
+
+    return restore
+
+
 def init_state(cfg: Config, device: str | torch.device = "cuda",
                seed: int | None = None, steps_per_epoch: int = 100,
-               model: nn.Module | None = None) -> TrainState:
+               model: nn.Module | None = None, mesh=None) -> TrainState:
     """The train state for ``cfg``: the model from ``build_model`` (or the
-    one given) switched to train mode, and its optimizer."""
+    one given) switched to train mode, and its optimizer.  Under a mesh
+    the weights and statistics are rank 0's on every rank
+    (``parallel.replicate``)."""
     if model is None:
         model = build_model(cfg, device=device, seed=seed)
+    if mesh is not None:
+        from ..parallel import replicate
+        model.load_state_dict(replicate(model.state_dict(), mesh))
     model.train()
     opt, schedules = make_optimizer(model, cfg, steps_per_epoch)
     return TrainState(model=model, optimizer=opt, schedules=schedules)

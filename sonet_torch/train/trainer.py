@@ -1,5 +1,5 @@
 """The epoch-loop trainer shared by every task (port of the JAX package's
-``train/trainer.py``), on one device.
+``train/trainer.py``), on one device or over a mesh of processes.
 
 Kept from the JAX package, and through it from the reference's four
 train scripts (modelnet/train.py, shrec16/train.py, part-seg/train.py,
@@ -30,9 +30,15 @@ compute stream and one replay a batch; the device pipeline's are
 ``EpochGraph``s, replayed once per row of the epoch's index table, their
 metrics fetched once an epoch.  On the CPU the same steps run eagerly.
 
-The JAX package's mesh and its multi-process runs are not ported yet;
-asking for them raises ``NotImplementedError`` naming the ``ROADMAP.md``
-item that brings them.
+Over several processes (``cfg.distributed``, ``parallel/``) the Trainer
+runs one program on every rank over a (data, points) mesh
+(``cfg.mesh_shape``; with none given, data parallel over every process;
+a mesh that does not cover the process group is refused, and so is a
+mesh in one process without ``--distributed``).  Every rank loads the
+global batch and keeps its block; the state is replicated; rank 0 alone
+writes the run directory and the console; a stop asked for on any rank
+stops every rank at the same step.  Steps over a gloo mesh run eagerly
+(``train/graphs.py``).
 """
 
 from __future__ import annotations
@@ -47,12 +53,12 @@ import torch
 
 from ..config import Config
 from ..data.pipeline import BatchLoader
-from ..device import refuse_mesh, resolve_device
+from ..parallel import collectives, distributed, mesh as pmesh
 from ..utils.logging import MetricLogger
 from . import checkpoints
 from .graphs import EpochGraph, StepGraph
 from .loops import make_steps
-from .state import init_state, set_capturable
+from .state import init_state, set_capturable, snapshot
 
 _EVAL_NAMES = {"loss_i": "loss", "correct_i": "accuracy", "iou_i": "iou"}
 
@@ -111,15 +117,10 @@ def _metric_key(cfg: Config) -> tuple[str, bool]:
     }[cfg.task]
 
 
-def _refuse_unported(cfg: Config) -> None:
+def _check_pipeline(cfg: Config) -> None:
     if cfg.input_pipeline not in ("host", "native", "device"):
         raise ValueError(f"input_pipeline {cfg.input_pipeline!r}: want "
                          f"'host', 'native' or 'device'")
-    refuse_mesh(cfg.mesh_shape, "trains")
-    if cfg.distributed:
-        raise NotImplementedError(
-            f"distributed {cfg.distributed!r}: multi-process runs are "
-            f"ROADMAP.md §1 item 12")
 
 
 class Trainer:
@@ -132,14 +133,22 @@ class Trainer:
     def __init__(self, cfg: Config, *, log_every: int = 200,
                  out_dir: Optional[str] = None, quiet: bool = False,
                  resume: bool = True, device: str | torch.device = "cuda"):
-        _refuse_unported(cfg)
-        self.device = resolve_device(device)
+        _check_pipeline(cfg)
+        # several processes: the group comes up before any device work
+        cfg, self.mesh, self.device = pmesh.setup_mesh(cfg, device)
+        self.multiprocess = self.mesh is not None
+        self.is_main = distributed.is_main()
         self.cfg = cfg
         self.out_dir = out_dir or os.path.join(cfg.checkpoints_dir, cfg.name)
-        os.makedirs(self.out_dir, exist_ok=True)
-        cfg.save(os.path.join(self.out_dir, "config.json"))  # opt.txt
-        self.logger = MetricLogger(self.out_dir, quiet=quiet)
+        if self.is_main:
+            os.makedirs(self.out_dir, exist_ok=True)
+            cfg.save(os.path.join(self.out_dir, "config.json"))  # opt.txt
+        self.logger = MetricLogger(self.out_dir if self.is_main else None,
+                                   quiet=quiet or not self.is_main)
         self.log_every = log_every
+        if self.mesh is not None:
+            pmesh.check_mesh_divisible(cfg.mesh_shape, cfg.batch_size,
+                                       cfg.input_pc_num)
 
         self.train_set = build_dataset(cfg, "train", self.device)
         eval_mode = "val" if cfg.dataset == "shrec" else "test"
@@ -156,7 +165,8 @@ class Trainer:
         self.train_loader.skip_epoch()
 
         self.state = init_state(cfg, device=self.device, seed=cfg.seed,
-                                steps_per_epoch=self.steps_per_epoch)
+                                steps_per_epoch=self.steps_per_epoch,
+                                mesh=self.mesh)
         self.model = self.state.model
         if cfg.pretrain:
             checkpoints.restore_encoder(cfg.pretrain, self.state)
@@ -164,9 +174,10 @@ class Trainer:
             os.path.join(self.out_dir, "ckpt"))
         if resume and latest:
             checkpoints.restore_checkpoint(latest, self.state)
-            print(f"resumed from {latest} at step {self.state.step}")
-        self.train_step, self.eval_step = make_steps(cfg,
-                                                     self.steps_per_epoch)
+            if self.is_main:
+                print(f"resumed from {latest} at step {self.state.step}")
+        self.train_step, self.eval_step = make_steps(
+            cfg, self.steps_per_epoch, mesh=self.mesh)
         # the random draws of the steps (point dropout, dropout masks, the
         # device pipeline's sampling): the counterpart of the JAX
         # package's PRNGKey(seed + 1)
@@ -180,8 +191,10 @@ class Trainer:
             self.train_graph = StepGraph(
                 self._host_train_step, self.device,
                 generators=(self.generator,), key=self._step_key,
-                snapshot=self._snapshot, on_replay=self._advance)
-            self.eval_graph = StepGraph(self._host_eval_step, self.device)
+                snapshot=self._snapshot, on_replay=self._advance,
+                mesh=self.mesh)
+            self.eval_graph = StepGraph(self._host_eval_step, self.device,
+                                        mesh=self.mesh)
         # a captured step needs Adam's step counters on the card
         set_capturable(self.state.optimizer, self.device.type == "cuda")
         self.best_metric = None
@@ -193,6 +206,7 @@ class Trainer:
         stream a split above ``device_budget_gb`` in chunks; set up the
         train and eval steps over them (captured on a card)."""
         from ..data.device_pipeline import (ChunkedDeviceData,
+                                            ShardedDeviceSplit,
                                             device_data_from_host,
                                             split_nbytes, stack_host_split)
         cfg = self.cfg
@@ -200,23 +214,36 @@ class Trainer:
             raise ValueError(
                 f"--dataset_placement {cfg.dataset_placement!r}: want "
                 f"'replicated' or 'sharded'")
-        if cfg.dataset_placement == "sharded":
+        if (cfg.dataset_placement == "sharded" and self.mesh is None
+                and self.is_main):
             print("device pipeline: --dataset_placement sharded needs a "
                   "mesh (--mesh_shape); using replicated placement on the "
                   "single device", flush=True)
         budget = int(cfg.device_budget_gb * 1e9)
 
         def build(dataset, what):
+            if (what == "train" and self.mesh is not None
+                    and cfg.dataset_placement == "sharded"):
+                sd = ShardedDeviceSplit(dataset, self.mesh, seed=cfg.seed,
+                                        device=self.device)
+                if self.is_main:
+                    print(f"device pipeline [{what}]: sharded over {sd.dp} "
+                          f"data shards of <= {sd.per} items "
+                          f"({sd.nbytes_per_shard() / 1e9:.3f} GB a "
+                          f"rank)", flush=True)
+                return sd
             host = stack_host_split(dataset)
             nbytes = split_nbytes(host)
             if budget > 0 and nbytes > budget:
                 cd = ChunkedDeviceData(host, budget, cfg.batch_size,
                                        self.device, seed=cfg.seed)
-                print(f"device pipeline [{what}]: split {nbytes / 1e9:.2f} "
-                      f"GB exceeds --device_budget_gb "
-                      f"{cfg.device_budget_gb:g}: streaming "
-                      f"{cd.num_chunks} chunks of {cd.chunk_items} items "
-                      f"(double-buffered)", flush=True)
+                if self.is_main:
+                    print(f"device pipeline [{what}]: split "
+                          f"{nbytes / 1e9:.2f} "
+                          f"GB exceeds --device_budget_gb "
+                          f"{cfg.device_budget_gb:g}: streaming "
+                          f"{cd.num_chunks} chunks of {cd.chunk_items} items "
+                          f"(double-buffered)", flush=True)
                 return cd
             return device_data_from_host(host, self.device)
 
@@ -228,21 +255,32 @@ class Trainer:
         self.train_graph = EpochGraph(
             self._device_train_step, self.device,
             generators=(self.generator,), key=self._step_key,
-            snapshot=self._snapshot, on_replay=self._advance)
+            snapshot=self._snapshot, on_replay=self._advance, mesh=self.mesh)
         self.eval_graph = EpochGraph(
             self._device_eval_step, self.device,
-            generators=(self.eval_generator,))
+            generators=(self.eval_generator,), mesh=self.mesh)
+
+    def _rank_rows(self, data, idx):
+        """This rank's rows of a table row: its block of a global row, or
+        the whole row of a sharded split's local table."""
+        if getattr(data, "shard", False):
+            return idx
+        return pmesh.block(idx, ("data",), self.mesh)
 
     def _device_train_step(self, data, idx):
         from ..data.device_pipeline import sample_batch
-        batch = sample_batch(data, idx, self.generator, self.cfg, train=True)
+        # under a mesh: the global batch's draws, this rank's block of it
+        batch = sample_batch(data, self._rank_rows(data, idx),
+                             self.generator, self.cfg, train=True,
+                             mesh=self.mesh)
         _, metrics = self.train_step(self.state, batch, self.generator)
         return metrics
 
     def _device_eval_step(self, data, idx):
         from ..data.device_pipeline import sample_batch
-        batch = sample_batch(data, idx, self.eval_generator, self.cfg,
-                             train=False)
+        batch = sample_batch(data, self._rank_rows(data, idx),
+                             self.eval_generator, self.cfg, train=False,
+                             mesh=self.mesh)
         m = self.eval_step(self.state, batch)
         # per-item columns and scalars only: what evaluate() reads
         return {k: v for k, v in m.items()
@@ -274,33 +312,9 @@ class Trainer:
         self.state.step += 1
 
     def _snapshot(self):
-        """A function that puts back what a train step changes: weights,
-        running statistics, Adam's state (a state first made by the step
-        goes back to zeros, which is what a fresh Adam starts from), the
-        step and the learning rates."""
-        st = self.state
-        live = [*self.model.parameters(), *self.model.buffers()]
-        saved = [t.detach().clone() for t in live]
-        opt = {p: {k: v.clone() for k, v in s.items()}
-               for p, s in st.optimizer.state.items()}
-        step = st.step
-        lrs = [g["lr"] for g in st.optimizer.param_groups]
-
-        def restore():
-            with torch.no_grad():
-                for t, s in zip(live, saved):
-                    t.copy_(s)
-                for p, s in st.optimizer.state.items():
-                    for k, v in s.items():
-                        if p in opt:
-                            v.copy_(opt[p][k])
-                        else:
-                            v.zero_()
-            st.step = step
-            for g, lr in zip(st.optimizer.param_groups, lrs):
-                g["lr"] = lr
-
-        return restore
+        """A function that puts back what a train step changes
+        (``train.state.snapshot``)."""
+        return snapshot(self.state)
 
     def _device_epoch_index(self, data, shuffle: bool, epoch: int):
         """((S, B) int64 index table, each row's valid count) for one
@@ -330,10 +344,17 @@ class Trainer:
                        drop_last: bool):
         """``(DeviceData, table, valids)`` for each part of an epoch: one
         for a resident split, one a chunk for a chunked one."""
-        from ..data.device_pipeline import ChunkedDeviceData
+        from ..data.device_pipeline import (ChunkedDeviceData,
+                                            ShardedDeviceSplit)
         if isinstance(data, ChunkedDeviceData):
             yield from data.epoch_chunks(shuffle, epoch, self.cfg.batch_size,
                                          drop_last)
+            return
+        if isinstance(data, ShardedDeviceSplit):
+            table, valids = data.epoch_index(shuffle, epoch,
+                                             self.cfg.batch_size)
+            if table is not None:
+                yield data.data, table, valids
             return
         table, valids = self._device_epoch_index(data, shuffle, epoch)
         if table is not None:
@@ -346,7 +367,7 @@ class Trainer:
         on the compute stream, so the next batch's copy cannot overwrite a
         buffer that a running replay still reads."""
         out = {}
-        for k, v in batch.items():
+        for k, v in pmesh.shard_batch(batch, self.mesh).items():
             if k == "valid":
                 continue
             t = torch.from_numpy(np.ascontiguousarray(v))
@@ -386,7 +407,7 @@ class Trainer:
                 self.logger.log(self.state.step,
                                 {k: float(v) for k, v in metrics.items()},
                                 epoch=epoch, prefix="train_")
-            if self._stop_requested:  # per-step granularity
+            if self._should_stop():  # per-step granularity
                 break
         if metrics is None:  # dataset smaller than one batch
             return {"sec_per_step": 0.0}
@@ -436,23 +457,32 @@ class Trainer:
         metric averaged over the valid items (modelnet/train.py:78-90).
         Each batch's sums (float32) are added up in float64 where the
         metrics lie, before the next batch's step overwrites them, and
-        fetched once."""
+        fetched once.  Under a mesh each rank sums the valid items of its
+        block and the sums are added over ``data`` before the fetch."""
         sums: Dict[str, torch.Tensor] = {}
         count = 0
         first = True
+        per = self.cfg.batch_size // pmesh.mesh_shape(self.mesh)[0]
         for db, m, valid in self._eval_batches():
-            if visualize and first and db is not None:
+            if visualize and first and db is not None and self.is_main:
                 self._save_visuals(db, m)
                 first = False
             count += valid
+            mine = collectives.local_valid(valid, per, self.mesh)
             for k, v in m.items():
                 if k.endswith("_i"):
                     name = _EVAL_NAMES.get(k, k[:-2])
                     if self.cfg.task == "segment" and k == "correct_i":
                         name = "seg_accuracy"
-                    total = v[:valid].float().sum().double()
+                    total = v[:mine].float().sum().double()
                     sums[name] = (sums[name] + total if name in sums
                                   else total)
+        if self.mesh is not None and sums:
+            names = sorted(sums)
+            with collectives.use_mesh(self.mesh):
+                total = collectives.all_reduce(
+                    torch.stack([sums[k] for k in names]), ("data",))
+            sums = dict(zip(names, total))
         return {k: float(v) / max(count, 1) for k, v in sums.items()}
 
     def _save_visuals(self, batch, metrics) -> None:
@@ -505,6 +535,15 @@ class Trainer:
         gate = True if threshold is None else (
             val > threshold if hib else val < threshold)
         return self._save() if improved and gate else None
+
+    def _should_stop(self) -> bool:
+        """The stop decision, the same on every rank: a launcher may signal
+        one process only, and a rank that left the loop alone would leave
+        the others waiting in the next collective.  Any rank's request
+        stops all; called at the same points on every rank."""
+        if not self.multiprocess:
+            return self._stop_requested
+        return distributed.any_process(self._stop_requested)
 
     def request_stop(self) -> None:
         """Ask ``fit`` to stop after the current step (the current epoch with
@@ -574,7 +613,7 @@ class Trainer:
                         ckpt_bucket = bucket
                         if saved is None:  # the gated save wrote this step
                             saved = self._save()
-                if self._stop_requested:
+                if self._should_stop():
                     if saved is None:  # ungated: resume must not regress
                         self._save()
                     self.logger.log(self.state.step, {"stopped_early": 1.0},

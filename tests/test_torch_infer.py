@@ -254,15 +254,24 @@ def check_scan_chunk(runs, tmp_path):
     dumped = sorted(os.listdir(tmp_path / "16"))
     if runs[0] != "classify":
         assert len([f for f in dumped if f.endswith(".npy")]) == 6
+    else:                          # each item's class scores, pred their argmax
+        _, rows, _ = _rows(tmp_path / "16")
+        assert len([f for f in dumped if f.endswith(".npy")]) == len(rows)
+        for r in rows:
+            score = np.load(tmp_path / "16" / f"score_{int(r[0]):06d}.npy")
+            assert score.shape == (
+                tcfg.load_config(str(trun / "config.json")).classes,)
+            assert int(score.argmax()) == int(r[2])
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_shape", "2"], "item 12"),
-    (["--mesh_shape", "4,2"], "item 12"),
+    # a mesh of several devices needs as many processes (--distributed)
+    (["--mesh_shape", "2"], "one process per device"),
+    (["--mesh_shape", "4,2"], "one process per device"),
 ])
 def test_unported_flags_raise(runs, tmp_path, flags, item):
     _, _, trun, _ = runs
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         tinfer.main(["--run", str(trun), "--out", str(tmp_path),
                      "--device", "cpu"] + flags)
 

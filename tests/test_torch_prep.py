@@ -249,7 +249,8 @@ def test_prep_som_matches_jax(tmp_path, layout):
 
 def test_prep_som_refusals(tmp_path, monkeypatch):
     _cloud_tree(tmp_path, "npy", n=2)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a mesh of several devices needs as many processes (--distributed)
+    with pytest.raises(ValueError, match="one process per device"):
         tprep.main(["som", "--root", str(tmp_path), "--mesh_shape", "2",
                     "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -515,12 +515,13 @@ def test_the_jax_daemon_answers_the_same_codes_on_a_stub():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh_shape", "2"], "item 12"),
-    (["--mesh_shape", "4,2"], "item 12"),
+    # a mesh of several devices needs as many processes (--distributed)
+    (["--mesh_shape", "2"], "one process per device"),
+    (["--mesh_shape", "4,2"], "one process per device"),
 ])
 def test_unported_flags_raise(run_dir, flags, item):
     argv = ["--device", "cpu", "--port", "0", "--run", run_dir] + flags
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         tserve.main(argv)
 
 

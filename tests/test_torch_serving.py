@@ -17,9 +17,10 @@ from sonet_tpu import config as jcfg
 from sonet_tpu import serving as jserving
 from sonet_torch import config as tcfg
 from sonet_torch import serving as tserving
-from sonet_torch.device import refuse_mesh, resolve_device
+from sonet_torch.device import resolve_device
 from sonet_torch.models import build_model
 from sonet_torch.nn.encoder import resolve_pooling
+from sonet_torch.parallel.mesh import mesh_shape_of, setup_mesh
 from sonet_torch.serving import ServingEngine
 
 torch.set_num_threads(2)
@@ -141,19 +142,28 @@ class TestDevice:
         with pytest.raises(RuntimeError, match="cuda"):
             ServingEngine.from_model(model, cfg)
 
+    @staticmethod
+    def served_mesh(mesh):
+        """The mesh ``ServingEngine.from_run(mesh_shape=mesh)`` serves
+        over: ``setup_mesh``'s rule, as every entry point's."""
+        return setup_mesh(tcfg.Config(mesh_shape=mesh_shape_of(mesh)),
+                          "cpu")[1]
+
     @pytest.mark.parametrize("mesh", [None, "", 0, 1, "1", "1,1", (1, 1)])
     def test_one_device_mesh_passes(self, mesh):
-        refuse_mesh(mesh, "works")
+        # one device in a world of one: no mesh, no collectives
+        assert self.served_mesh(mesh) is None
 
     @pytest.mark.parametrize("mesh", [2, "2", "4x2", (2, 1), [1, 4]])
     def test_a_mesh_of_devices_is_refused(self, mesh):
-        with pytest.raises(NotImplementedError, match="works on one device"
-                           ".*item 12"):
-            refuse_mesh(mesh, "works")
+        # a mesh of several devices needs as many processes (--distributed)
+        with pytest.raises(ValueError, match="one process per device"
+                           ".*--distributed"):
+            self.served_mesh(mesh)
 
     def test_a_mesh_that_is_no_shape_exits(self):
         with pytest.raises(SystemExit, match="--mesh_shape"):
-            refuse_mesh("2,x,y", "works")
+            self.served_mesh("2,x,y")
 
     def test_auto_pooling_follows_the_device(self):
         cfg = tcfg.modelnet40()

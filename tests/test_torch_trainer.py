@@ -372,12 +372,16 @@ def test_cli_help_imports_no_torch():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("over,item", [
-    (dict(mesh_shape=(2, 1)), "item 12"),
-    (dict(distributed="auto"), "item 12"),
+    # a mesh of several devices in a world of one
+    (dict(mesh_shape=(2, 1)), "one process per device.*--distributed"),
+    # 'auto' outside a launcher: torchrun's environment is missing
+    (dict(distributed="auto"), "torchrun's environment.*not set"),
 ])
-def test_unported_options_raise(tmp_path, over, item):
+def test_unported_options_raise(tmp_path, over, item, monkeypatch):
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
     cfg = _cfg(tmp_path, "no", **over)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         Trainer(cfg, quiet=True, device="cpu")
 
 
