@@ -24,7 +24,9 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    those rows of the B=8 call), and at the per-rank shapes of the mesh
    phases, (4, 15000, 384) and (8, 7500, 384); each of its
    cases must take the kernel (bulk or direct) that its shape and
-   alignment name.  Kernel 2 (``segment_argmax``) is on no
+   alignment name, and equal (``==``) on every occupied node two more
+   plain versions of the function, ``ops.segment_max_sorted`` and
+   ``ops.segment_max_onehot``.  Kernel 2 (``segment_argmax``) is on no
    path of the model and is held here only, also against kernel 1's
    values;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
@@ -166,7 +168,27 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    engine; ``make_server`` on the artifact answers 16 concurrent B'=1
    requests and ``sonet-torch serve --artifact``, as a process, one;
    bytes and export times;
-22. mesh: ``config.modelnet40()`` on two ranks of the one card, launched
+22. import_ckpt: the reproduce run written out as the reference's
+   ``.pth`` files (``compat.export_reference_checkpoint``), read back by
+   ``sonet-torch import-ckpt`` into a new run, and that run served by
+   ``ServingEngine.from_run``: every answer equal (``==``) to the
+   original run's, kernel 1 at (8, 15000, 384); the same files against
+   ``--classes 10`` refused before anything is written;
+23. train_remat: a ``config.modelnet40()`` train step with ``remat=True``
+   (the first PointNet run again in the backward), captured, against the
+   same step without it from the same weights, batch and generator state:
+   loss, gradients, update and running statistics equal (``==``), or
+   within ``CAPTURED_RTOL`` with the largest difference printed; each
+   step's peak memory (eager and over its capture) and time;
+24. profile: ``utils.tprof.device_time`` of the ``config.modelnet40()``
+   forward and train step within 3% of the reading by hand
+   (``_busy_share``) in the same run, the kernels bucketed by
+   ``utils.hlocat.categorize`` (the pooling bucket exactly kernel 1's
+   launches), ``utils.profiling.scan_bench`` of kernel 1 at
+   (8, 15000, 384) within 5% of phase 3's graph reading;
+25. monitor: ``utils.dashboard.make_dashboard_server`` over the trainer
+   run answering one request with that run's metric rows;
+26. mesh: ``config.modelnet40()`` on two ranks of the one card, launched
    as a user launches them (``python -m torch.distributed.run
    --standalone --nproc_per_node 2``; this script's ``--mesh_steps``
    mode), ``--device cuda:0``: the ranks share the card, so their group
@@ -187,17 +209,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    one rounding away (``NUDGE``); under (1, 2) a planted fault, node-level
    gradients summed over ``points``, must fail the gradient gate; every
    rank counts both kernels' launches and the graph replays from 0 around
-   its main path.  Beside phase 25, a world of
+   its main path.  Beside phase 29, a world of
    one over NCCL (``--mesh_nccl``, ``--device cuda``): the train step
    over its (1, 1) mesh, gradients and metrics all-reduced by NCCL inside
    the graph, captured, and one replay `==` the captured step over no
    mesh;
-23. mesh_segment: phase 22's (1, 2) step at ``config.shapenetpart()``
+27. mesh_segment: phase 26's (1, 2) step at ``config.shapenetpart()``
    width;
-24. mesh_autoencode: the same at ``config.autoencoder()`` width, with the
+28. mesh_autoencode: the same at ``config.autoencoder()`` width, with the
    Chamfer pairs whose nearest point moves, over the mesh and from the
    nudged weights, counted against one process's;
-25. mesh_trainer: ``sonet-torch classify --distributed auto --device
+29. mesh_trainer: ``sonet-torch classify --distributed auto --device
    cuda:0`` on two ranks over the "reproduce" tree (this script's
    ``--rank_cli`` mode counts each rank's launches around ``cli.main``):
    the host pipeline for two epochs, a SIGTERM to rank 1 alone once
@@ -210,16 +232,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    within 2%, the same rows, each item's class scores within the bf16
    rule and its predicted class the same wherever the two best scores
    are further apart than that;
-26. kernel 1's calls by shape over every phase after 3, and a JSON line
-   of every kernel with its launches on each of the twenty-one paths
+30. kernel 1's calls by shape over every phase after 3, and a JSON line
+   of every kernel with its launches on each of the twenty-four paths
    beside its graph replays there, error and times;
-27. last line: {"ok": true, "device": {...}}.
+31. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
 and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
 autoencoder's decoder alone (``profile_forward_decoder.txt``) and of each
 SOM fit (``profile_som_fit_<schedule>.txt``), and prints the device-busy
-shares.
+shares and buckets; phase 24 writes its rows (ms, launches, bucket,
+kernel name) to ``DIR/profile_tprof_<forward|train_step>.txt``.
 """
 
 from __future__ import annotations
@@ -227,6 +250,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import signal
 import statistics
 import subprocess
@@ -587,6 +611,26 @@ def _plain_by_clouds(plain, data, seg, m, clouds=8):
                       for b in range(0, data.shape[0], clouds)])
 
 
+def _same_as_oracles(torch, got, data, seg, m) -> bool:
+    """Kernel 1's output ``got`` against two more plain versions of its
+    function, ``ops.segment_max_sorted`` (on the stably sorted points) and
+    ``ops.segment_max_onehot``, each ``==`` on every occupied node whose
+    maximum is finite.  Their empty nodes take point 0's feature where the
+    kernel writes -3e38, and a node whose points are all -inf reads -3e38
+    in the kernel (-inf and the one-hot's fill, -1e10, in theirs): there
+    the kernel must read -3e38."""
+    from sonet_torch.ops import (segment_counts, segment_max_onehot,
+                                 segment_max_sorted, sort_by_segment)
+    sids, _, _, sdata = sort_by_segment(seg, data)
+    by_sorted = _plain_by_clouds(segment_max_sorted, sdata, sids, m).float()
+    by_onehot = _plain_by_clouds(segment_max_onehot, data, seg, m).float()
+    live = (segment_counts(seg, m) > 0)[..., None].expand_as(got)
+    finite = live & torch.isfinite(by_sorted)
+    return (bool((got[finite] == by_sorted[finite]).all())
+            and bool((got[finite] == by_onehot[finite]).all())
+            and bool((got[live & ~finite] == -3.0e38).all()))
+
+
 def _time_kernel1(torch, data, ids, M):
     """Kernel 1 at one shape: event and graph times of the wrapper, the
     device durations of its two kernels, and the bound."""
@@ -684,12 +728,18 @@ def _check_segment_max_window(torch, gen, ids, M, ids_mnist):
         # -inf never reaches the output, so the difference is finite
         err = float((got - want).abs().max())
         max_err = max(max_err, err)
+        oracles = _same_as_oracles(torch, got, data, seg, m)
         log(f"kernel segment_max_window [{name}] {tuple(data.shape)} M={m}, "
             f"{path} kernel: {'equal' if same else 'DIFFERENT'} (max abs err "
-            f"{err})")
+            f"{err}); to segment_max_sorted and segment_max_onehot: "
+            f"{'equal' if oracles else 'DIFFERENT'}")
         if not same:
             raise AssertionError(f"segment_max_window differs from its plain "
                                  f"version on {name}")
+        if not oracles:
+            raise AssertionError(f"segment_max_window differs from "
+                                 f"segment_max_sorted or segment_max_onehot "
+                                 f"on {name}")
 
     data, data_f32, data64 = cases[0][1], cases[1][1], cases[2][1]
     t = _time_kernel1(torch, data, ids, M)
@@ -1807,6 +1857,8 @@ def phase_retrieve(kernel_counters, on_path, runs):
         raise AssertionError("sonet-torch classify did not evaluate on val")
     loader = BatchLoader(build_dataset(cfg, "test", "cuda"), cfg.batch_size,
                          shuffle=False, drop_last=False, pad_last=True)
+    # the command scores epoch 1's point draws, as sonet retrieve does
+    loader.skip_epoch()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scores, labels, ids = retrieval.extract_scores(eval_step, state, loader,
@@ -3096,6 +3148,312 @@ def phase_export(kernel_counters, on_path, run, runs):
     return launches, replays
 
 
+
+# ---------------------------------------------------------------------------
+# reference checkpoints, remat, the profiling utilities, the dashboard
+# ---------------------------------------------------------------------------
+
+def phase_import_ckpt(kernel_counters, on_path, run, runs):
+    """The "reproduce" run written out as the reference's ``.pth`` files by
+    ``compat.export_reference_checkpoint``, read back by ``sonet-torch
+    import-ckpt`` into a new run, and that run served by
+    ``ServingEngine.from_run`` on the card: its answers equal (``==``) the
+    original run's (float32 weights make the round trip bit for bit),
+    kernel 1 at (8, 15000, 384).  The same files against another
+    ``--classes`` fail before anything is written.  Returns (the launches
+    from the imported engine's warm-up on, its replays)."""
+    import numpy as np
+    import torch
+    from sonet_torch import compat
+    from sonet_torch.config import load_config
+    from sonet_torch.serving import ServingEngine
+
+    cfg = load_config(os.path.join(run, "config.json"))
+    pth = compat.export_reference_checkpoint(run, os.path.join(runs, "pth"))
+    log(f"export_reference_checkpoint: "
+        f"{sorted(os.path.basename(p) for p in pth.values())}, "
+        f"{sum(os.path.getsize(p) for p in pth.values())} bytes")
+    flags = ["--encoder", pth["encoder"], "--classifier", pth["classifier"],
+             "--preset", "modelnet40"]
+    wrong = os.path.join(runs, "imported_wrong")
+    try:
+        _cli(["import-ckpt", "--device", "cuda", "--out", wrong, "--classes",
+              "10"] + flags)
+    except ValueError as e:
+        if "does not fit" not in str(e) or os.path.exists(wrong):
+            raise
+        log(f"import-ckpt with --classes 10: refused before writing "
+            f"({str(e).splitlines()[1].strip()} ...)")
+    else:
+        raise AssertionError("import-ckpt took files of another --classes")
+    new = os.path.join(runs, "imported")
+    _cli(["import-ckpt", "--device", "cuda", "--out", new, "--step", "10"]
+         + flags)
+    clouds = _clouds(np, 41, cfg, seed=41)
+    req = {n: clouds[n] for n in ("pc", "sn", "node")}
+    want = ServingEngine.from_run(run, device="cuda").predict(req)
+    record, shapes = _kernel1_shapes()
+    _reset(kernel_counters)
+    with _GraphCounter() as graphs, record():
+        engine = ServingEngine.from_run(new, device="cuda")
+        engine.warmup()
+        got = engine.predict(req)
+        torch.cuda.synchronize()
+    launches = _launch_counts(kernel_counters)
+    same = got.shape == want.shape and bool((got == want).all())
+    log(f"the imported run served, 41 clouds: "
+        f"{'equal' if same else 'DIFFERENT'} to the original run's answers "
+        f"(max abs diff "
+        f"{float(np.abs(got - want).max())}); kernel 1 calls by shape "
+        f"{shapes}, launches {launches}, {graphs.captures} captures, "
+        f"{graphs.replays} replays")
+    if not same:
+        raise AssertionError("the imported run answers otherwise than the run "
+                             "it was exported from")
+    if set(shapes) != {(8, 15000, 384, 64)} or not all(
+            launches[n] for n in on_path):
+        raise AssertionError("import_ckpt: kernel 1 not launched at "
+                             "(8, 15000, 384)")
+    return launches, graphs.replays
+
+
+def _step_state(state):
+    return {"model": {k: v.detach().clone()
+                      for k, v in state.model.state_dict().items()},
+            "grad": {n: p.grad.detach().clone()
+                     for n, p in state.model.named_parameters()
+                     if p.grad is not None}}
+
+
+def _max_diff(a, b):
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+
+def phase_train_remat(kernel_counters, on_path):
+    """A ``config.modelnet40()`` train step with ``remat=True`` and the same
+    step without it, each captured (``train.graphs.StepGraph``, as the
+    ``Trainer`` runs it on a card) from the same weights, batch and
+    generator state: the loss, the gradients, the update and the running
+    statistics equal (``==``), or, where a kernel is not deterministic,
+    within ``CAPTURED_RTOL`` with the largest difference printed; each
+    step's peak memory (``max_memory_allocated``, reset before it), eager
+    and over its capture, and its time by events.  Returns (the launches of
+    both steps' warm-ups and captures, their replays)."""
+    import numpy as np
+    import torch
+    from sonet_torch import config, train
+    from sonet_torch.models import build_model
+    from sonet_torch.train.graphs import StepGraph
+    from sonet_torch.train.state import set_capturable
+
+    dev = torch.device("cuda")
+    base = config.modelnet40()
+    B, spe = base.batch_size, 100
+    clouds = _clouds(np, B, base, seed=5)
+    clouds["label"] = np.random.RandomState(6).randint(0, base.classes, B)
+    batch = {n: torch.from_numpy(a).to(dev) for n, a in clouds.items()}
+    init = build_model(base, device=dev, seed=0).state_dict()
+    out, records = {}, {}
+    _reset(kernel_counters)
+    with _GraphCounter() as graphs:
+        for remat in (False, True):
+            cfg = base.replace(remat=remat)
+            model = build_model(cfg, device=dev)
+            model.load_state_dict(init)
+            state = train.init_state(cfg, device=dev, model=model,
+                                     steps_per_epoch=spe)
+            train_step, _ = train.make_steps(cfg, spe)
+            gen = torch.Generator(device=dev).manual_seed(9)
+            # eager: the peak of one step, and the state put back
+            eager_state = train.init_state(
+                cfg, device=dev, steps_per_epoch=spe,
+                model=build_model(cfg, device=dev))
+            eager_state.model.load_state_dict(init)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            train_step(eager_state, batch,
+                       torch.Generator(device=dev).manual_seed(9))
+            torch.cuda.synchronize()
+            eager_peak = torch.cuda.max_memory_allocated() - base_mem
+            del eager_state
+            set_capturable(state.optimizer, True)
+            names = tuple(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base_mem = torch.cuda.memory_allocated()
+            graph = StepGraph(
+                lambda *t: train_step(state, dict(zip(names, t)), gen)[1],
+                dev, generators=(gen,))
+            metrics = graph(*batch.values())
+            torch.cuda.synchronize()
+            capture_peak = torch.cuda.max_memory_allocated() - base_mem
+            loss = metrics["loss"].clone()
+            out[remat] = dict(_step_state(state), loss=loss)
+
+            def replay():
+                graph(*batch.values())
+            step_ms = time_ms(replay, reps=10)
+            graph.reset()
+            del graph
+            records[remat] = (eager_peak, capture_peak, step_ms)
+            log(f"modelnet40 train step, remat={remat}: loss "
+                f"{float(loss)}, peak memory above the state: eager "
+                f"{eager_peak / 2 ** 20:.1f} MiB, over the warm-up and "
+                f"capture {capture_peak / 2 ** 20:.1f} MiB; captured step "
+                f"{step_ms:.4f} ms by events (10 more replays)")
+    launches = _launch_counts(kernel_counters)
+    plain, remat = out[False], out[True]
+    exact = (bool(torch.equal(plain["loss"], remat["loss"]))
+             and all(torch.equal(plain["grad"][k], remat["grad"][k])
+                     for k in plain["grad"])
+             and all(torch.equal(plain["model"][k], remat["model"][k])
+                     for k in plain["model"]))
+    grad_diff = _max_diff(plain["grad"], remat["grad"])
+    state_diff = _max_diff(plain["model"], remat["model"])
+    saved = records[False][0] - records[True][0]
+    log(f"remat against the plain step: {'equal' if exact else 'NOT equal'}"
+        f" (largest difference: gradients {grad_diff}, weights and running "
+        f"statistics {state_diff}); remat saves "
+        f"{saved / 2 ** 20:.1f} MiB of the eager step's peak "
+        f"({records[True][0] / 2 ** 20:.1f} against "
+        f"{records[False][0] / 2 ** 20:.1f} MiB), "
+        f"{(records[False][1] - records[True][1]) / 2 ** 20:.1f} MiB over the "
+        f"capture; captured step {records[True][2]:.4f} against "
+        f"{records[False][2]:.4f} ms; launches {launches}, "
+        f"{graphs.captures} captures, {graphs.replays} replays")
+    if not exact:
+        rel = abs(float(plain["loss"]) - float(remat["loss"])) / max(
+            1.0, abs(float(plain["loss"])))
+        num = sum(float((plain["grad"][k] - remat["grad"][k]).double()
+                        .square().sum()) for k in plain["grad"])
+        den = sum(float(plain["grad"][k].double().square().sum())
+                  for k in plain["grad"])
+        log(f"remat not bit-equal: loss {rel}, gradients "
+            f"{(num / den) ** 0.5} by the relative norm (CAPTURED_RTOL "
+            f"{CAPTURED_RTOL})")
+        if rel > CAPTURED_RTOL or (num / den) ** 0.5 > CAPTURED_RTOL:
+            raise AssertionError("the remat step disagrees with the plain one")
+    if saved <= 0:
+        raise AssertionError("remat did not lower the step's peak memory")
+    if not all(launches[n] for n in on_path):
+        raise AssertionError("train_remat: kernel 1 was not launched")
+    return launches, graphs.replays
+
+
+def phase_profile(kernel_counters, on_path, kernels, profile_dir=None):
+    """The profiling utilities on the card: ``utils.tprof.device_time`` of
+    the ``config.modelnet40()`` forward and train step (eager) within 3%
+    of the reading by hand in the same run (``_busy_share``), their
+    kernels bucketed by ``utils.hlocat.categorize`` with the pooling
+    bucket holding exactly kernel 1's launches, and
+    ``utils.profiling.scan_bench`` of kernel 1 at (8, 15000, 384) within
+    5% of phase 3's graph reading.  Returns (the launches, the graph
+    replays: ``scan_bench``'s)."""
+    import numpy as np
+    import torch
+    from sonet_torch import config, train
+    from sonet_torch.ops.cuda.segment_max_window import windowed_vals
+    from sonet_torch.utils import hlocat, tprof
+    from sonet_torch.utils.profiling import scan_bench
+
+    dev = torch.device("cuda")
+    cfg = config.modelnet40()
+    B, spe = cfg.batch_size, 100
+    clouds = _clouds(np, B, cfg, seed=7)
+    clouds["label"] = np.random.RandomState(8).randint(0, cfg.classes, B)
+    batch = {n: torch.from_numpy(a).to(dev) for n, a in clouds.items()}
+    state = train.init_state(cfg, device=dev, seed=0, steps_per_epoch=spe)
+    train_step, _ = train.make_steps(cfg, spe)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    model, ins = state.model, [batch[n] for n in ("pc", "sn", "node")]
+
+    def forward():
+        with torch.inference_mode():
+            return model(*ins)[0]
+
+    def step():
+        return train_step(state, batch, gen)[1]
+
+    counter = kernel_counters["segment_max_window"]
+    _reset(kernel_counters)
+    with _GraphCounter() as graphs:
+        for what, fn in (("forward", forward), ("train_step", step)):
+            model.train(what == "train_step")
+            fn()
+            _, by_hand, _ = _busy_share(lambda: [fn() for _ in range(5)])
+            before = counter.launches
+            p = tprof.profile(fn, (), iters=5)
+            # the first call is outside the window
+            calls = (counter.launches - before - 1) / 5
+            by_hand_ms = by_hand * 1e3 / 5
+            cats = hlocat.categorize(p.ms)
+            pool = {k: n for k, n in p.launches.items()
+                    if hlocat.bucket(k) == "pooling kernel"}
+            log(f"profile {what}: tprof.device_time {p.total_ms:.4f} ms, by "
+                f"hand {by_hand_ms:.4f} ms ({p.total_ms / by_hand_ms - 1:+.2%}); "
+                f"{sum(p.launches.values()):.0f} device rows a call; buckets "
+                + ", ".join(f"{k} {v:.4f} ms ({v / p.total_ms:.1%})"
+                            for k, v in sorted(cats.items(),
+                                               key=lambda x: -x[1]))
+                + f"; pooling rows {pool}, kernel 1's wrapper {calls} a call")
+            for name, ms in sorted(p.ms.items(), key=lambda x: -x[1])[:12]:
+                log(f"  {ms:9.4f} ms {p.launches[name]:6.1f}x "
+                    f"[{hlocat.bucket(name)}] {name[:110]}")
+            if profile_dir:
+                os.makedirs(profile_dir, exist_ok=True)
+                with open(os.path.join(profile_dir,
+                                       f"profile_tprof_{what}.txt"), "w") as f:
+                    for name, ms in sorted(p.ms.items(), key=lambda x: -x[1]):
+                        f.write(f"{ms:.6f}\t{p.launches[name]:.1f}\t"
+                                f"{hlocat.bucket(name)}\t{name}\n")
+            if abs(p.total_ms / by_hand_ms - 1) > 0.03:
+                raise AssertionError(f"profile {what}: tprof's device time is "
+                                     f"not within 3% of the reading by hand")
+            syms = {re.search(r"segment_max_window_\w+|fill_empty", k).group(0)
+                    for k in pool}
+            if (syms != {"fill_empty", "segment_max_window_bulk"}
+                    or len(pool) != 2 or calls != 1
+                    or any(n != calls for n in pool.values())):
+                raise AssertionError(f"profile {what}: the pooling bucket is "
+                                     f"not exactly kernel 1's launches")
+        gen1 = torch.Generator(device=dev).manual_seed(0)
+        ids = _flagship_ids(torch, 8, 5000, 64, 3, gen1, dev)
+        data = torch.randn((8, 15000, 384), generator=gen1,
+                           device=dev).to(torch.bfloat16)
+        scan_ms = scan_bench(windowed_vals, (data, ids, 64), iters=20)
+    graph_ms = kernels[0]["graph_ms"]
+    log(f"scan_bench of kernel 1 at (8, 15000, 384) bf16: {scan_ms:.4f} ms "
+        f"a call, phase 3's graph reading {graph_ms:.4f} ms "
+        f"({scan_ms / graph_ms - 1:+.2%})")
+    if abs(scan_ms / graph_ms - 1) > 0.05:
+        raise AssertionError("scan_bench is not within 5% of phase 3's "
+                             "graph reading")
+    return _launch_counts(kernel_counters), graphs.replays
+
+
+def phase_monitor(runs):
+    """``utils.dashboard.make_dashboard_server`` over the run the "trainer"
+    phase wrote: one request for its metrics answers the rows of its
+    ``train_metrics.jsonl``."""
+    from sonet_torch.utils.dashboard import make_dashboard_server
+    run = os.path.join(runs, "trainer")
+    with open(os.path.join(run, "train_metrics.jsonl")) as f:
+        want = [json.loads(line) for line in f if line.strip()]
+    srv = make_dashboard_server(run, port=0)
+    try:
+        status, body = _get(f"http://127.0.0.1:{srv.server_address[1]}"
+                            f"/api/metrics?run=.&since=0")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    rows = json.loads(body)["rows"]
+    log(f"monitor over the trainer run: status {status}, {len(rows)} rows "
+        f"of {len(want)}, keys {sorted(rows[-1]) if rows else []}")
+    if status != 200 or rows != want or not rows:
+        raise AssertionError("the dashboard does not answer the run's rows")
+
+
 def _get(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=60) as r:
@@ -3114,33 +3472,25 @@ def _device_rows(events):
 
 
 def profile_run(fn, out_dir, what):
-    """torch.profiler over 5 calls of ``fn``: the kernel table to
-    ``out_dir/profile_<what>.txt`` and the device-busy share of the window
+    """torch.profiler over 5 calls of ``fn`` (``utils.tprof.profile``): the
+    profiler's table to ``out_dir/profile_<what>.txt``; the device time,
+    its share of the window and its buckets (``utils.hlocat.categorize``)
     to stdout."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    from sonet_torch.utils import hlocat, tprof
     os.makedirs(out_dir, exist_ok=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.key_averages()
-    kernels = _device_rows(events)
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    p = tprof.profile(fn, (), iters=5)
     path = os.path.join(out_dir, f"profile_{what}.txt")
     with open(path, "w") as f:
-        f.write(events.table(sort_by="self_device_time_total", row_limit=80))
-    log(f"profile: 5 x {what}, wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms ({busy_us / wall_us:.1%} under the "
-        f"profiler) in {sum(e.count for e in kernels) // 5} kernels, copies "
-        f"and memsets a call; table in {path}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
-        log(f"  {e.self_device_time_total / 5e3:9.4f} ms/{what} "
-            f"{e.count // 5:4d}x  {e.key[:100]}")
+        f.write(p.table)
+    log(f"profile: 5 x {what}, wall {p.wall_ms:.3f} ms a call, device busy "
+        f"{p.total_ms:.3f} ms ({p.total_ms / p.wall_ms:.1%} under the "
+        f"profiler) in {sum(p.launches.values()):.0f} kernels, copies and "
+        f"memsets a call; table in {path}; buckets "
+        + ", ".join(f"{k} {v / p.total_ms:.1%}" for k, v in sorted(
+            hlocat.categorize(p.ms).items(), key=lambda x: -x[1])))
+    for name, ms in sorted(p.ms.items(), key=lambda x: -x[1])[:25]:
+        log(f"  {ms:9.4f} ms/{what} {p.launches[name]:6.1f}x  "
+            f"[{hlocat.bucket(name)}] {name[:100]}")
 
 
 # ---------------------------------------------------------------------------
@@ -4066,6 +4416,15 @@ def main(argv=None) -> int:
                 ("export", lambda: phase_export(counters, on_path, run,
                                                 runs))):
             by_path[name], replays[name] = timed(name, phase)
+        by_path["import_ckpt"], replays["import_ckpt"] = timed(
+            "import_ckpt",
+            lambda: phase_import_ckpt(counters, on_path, run, runs))
+        by_path["train_remat"], replays["train_remat"] = timed(
+            "train_remat", lambda: phase_train_remat(counters, on_path))
+        by_path["profile"], replays["profile"] = timed(
+            "profile",
+            lambda: phase_profile(counters, on_path, kernels, args.profile))
+        timed("monitor", lambda: phase_monitor(runs))
         # ranks launched with torchrun: their launches counted in the ranks
         mesh_launches, mesh_replays = timed(
             "mesh, mesh_segment, mesh_autoencode",

@@ -21,8 +21,9 @@ a card raises instead of falling back.
 __version__ = "0.1.0"
 
 # subpackages import lazily on attribute access, as in the JAX package
-_LAZY = ("config", "device", "ops", "nn", "models", "convert", "serving",
-         "train", "som", "data", "retrieval", "utils", "tasks", "cli", "parallel")
+_LAZY = ("config", "device", "ops", "nn", "models", "convert", "compat",
+         "serving", "train", "som", "data", "retrieval", "utils", "tasks",
+         "cli", "parallel")
 
 
 def __getattr__(name):

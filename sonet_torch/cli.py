@@ -10,6 +10,8 @@
     sonet-torch serve      --run <dir> --port 8321              # HTTP daemon
     sonet-torch serve      --artifact <dir> --port 8321         # an export
     sonet-torch export     --run <dir> [--poly_batch]           # artifact
+    sonet-torch import-ckpt --encoder <pth> ... --out <dir>     # .pth in
+    sonet-torch monitor    --root <dir> --port 8322             # dashboard
     sonet-torch prep       {sample,som,check,ingest} ...        # data prep
 
 Each command runs ``sonet_torch.tasks.<name>.main(argv)`` (``prep``:
@@ -43,6 +45,10 @@ _COMMANDS = {
               "HTTP model server (JSON/npz predict API)"),
     "export": ("sonet_torch.tasks.export",
                "export a run to a torch.export serving artifact"),
+    "import-ckpt": ("sonet_torch.tasks.import_ckpt",
+                    "import reference .pth checkpoints into a run dir"),
+    "monitor": ("sonet_torch.tasks.monitor",
+                "live training dashboard (SVG charts over run metrics)"),
     "prep": ("sonet_torch.data.prep",
              "dataset preparation (sample meshes, fit SOMs, check trees)"),
 }

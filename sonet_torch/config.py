@@ -85,8 +85,9 @@ class Config:
     # JAX package.  The port's Trainer takes every input_pipeline
     # (device_budget_gb bounds the device pipeline's split;
     # dataset_placement "sharded" needs a mesh and is read as replicated
-    # without one), a (data, points) mesh over the processes of a
-    # --distributed run (parallel/), and does not read remat
+    # without one) and a (data, points) mesh over the processes of a
+    # --distributed run (parallel/); remat rematerialises the first
+    # PointNet in training (nn/encoder.py, torch.utils.checkpoint)
     input_pipeline: str = "host"  # host | native | device
     device_budget_gb: float = 0.0
     dataset_placement: str = "replicated"  # replicated | sharded

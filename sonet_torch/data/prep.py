@@ -68,13 +68,9 @@ def cmd_som(args) -> None:
     # --mesh_shape D: the fits are independent per cloud, so each of D
     # processes fits its block of every batch; process 0 writes the nodes
     want = (max(args.mesh_shape, 1), 1)
-    _, mesh, dev = setup_mesh(Config(mesh_shape=want,
+    _, mesh, dev = setup_mesh(Config(mesh_shape=want, batch_size=args.batch,
                                      distributed=args.distributed),
                               args.device)
-    if args.batch % want[0]:
-        print(f"--batch {args.batch} must divide over --mesh_shape "
-              f"{want[0]}", file=sys.stderr)
-        sys.exit(1)
     main_rank = is_main()
     files = _iter_cloud_files(args.root)
     if not files:

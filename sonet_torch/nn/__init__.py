@@ -4,7 +4,8 @@ channel-last."""
 from .layers import (BatchNorm, ConcatDense, Conv3x3, Dense, InstanceNorm,
                      KNNModule, PointLayer, PointNetMLP, PointResNet, UpConv,
                      activation_fn)
-from .encoder import Encoder, EncoderOutput, resolve_pooling
+from .encoder import (Encoder, EncoderOutput, Transformer, resolve_pooling,
+                      rotation_matrix_y)
 from .decoder import (ConvToPC, Decoder, DecoderConv, DecoderConvOutput,
                       DecoderLinear, DecoderOutput)
 from .heads import ClassifierHead, SegmenterHead
@@ -14,6 +15,7 @@ __all__ = [
     "PointNetMLP", "PointResNet", "activation_fn", "Conv3x3", "InstanceNorm",
     "UpConv", "ConvToPC", "Decoder", "DecoderConv", "DecoderConvOutput",
     "DecoderLinear", "DecoderOutput",
-    "Encoder", "EncoderOutput", "resolve_pooling", "ClassifierHead",
+    "Encoder", "EncoderOutput", "Transformer", "resolve_pooling",
+    "rotation_matrix_y", "ClassifierHead",
     "SegmenterHead",
 ]

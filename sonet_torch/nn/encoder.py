@@ -21,19 +21,29 @@ combined over ``points`` (``ops.segment_fast``), and everything from the
 pooled nodes on -- kNN, the kNN layer, the final PointNet, the global
 max -- is node-level work, the same on every points rank.  The first
 PointNet's BatchNorms reduce over the whole mesh (``sharded_points``).
+
+With ``cfg.remat`` a training forward keeps none of the first PointNet's
+(B, kN, 64..384) activations, the step's largest: the backward runs that
+stack again (``torch.utils.checkpoint``), as the JAX package's
+``nn.remat`` does.  ``Transformer`` and ``rotation_matrix_y`` are the
+reference's rotation regressor, dead there too; they are here for the
+API's sake.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..ops import assign_topk, knn, one_hot, segment_max, segment_max_fast
 from ..parallel import collectives
-from .layers import KNNModule, PointNetMLP, PointResNet
+from .layers import (KNNModule, PointLayer, PointNetMLP, PointResNet,
+                     recomputation)
 
 
 def resolve_pooling(cfg: Config, device: torch.device | str) -> str:
@@ -178,7 +188,19 @@ class Encoder(nn.Module):
             first_in = torch.cat([x_decentered, sn_stack], -1)
         else:
             first_in = x_decentered
-        first_pn_out = self.first_pointnet(first_in, epoch=epoch)
+        if cfg.remat and self.training:
+            # the recomputation in the backward must not update the running
+            # statistics a second time (recomputation()); the stack draws
+            # no random numbers, so no generator state is kept for it, and
+            # reading the CUDA generator's state is not allowed while a
+            # graph is captured
+            first_pn_out = checkpoint(
+                self.first_pointnet, first_in, epoch=epoch,
+                use_reentrant=False, preserve_rng_state=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    recomputation()))
+        else:
+            first_pn_out = self.first_pointnet(first_in, epoch=epoch)
 
         # -- node pooling -----------------------------------------------------
         if sort_points:
@@ -222,3 +244,54 @@ class Encoder(nn.Module):
             first_pn_out_masked_max=pooled, knn_center=knn_center,
             knn_feature=knn_feature, final_pn_out=final_pn_out,
             perm=perm, inv_perm=inv_perm, onehot=onehot)
+
+
+class Transformer(nn.Module):
+    """The reference's rotation regressor: sin(theta) (B, 1) in [-1, 1] of
+    a cloud (B, N, ``in_features``, default the spatial dimension).  Dead
+    in the reference (built, its use commented out) and here;
+    ``rotation_matrix_y`` builds the rotation that the commented block
+    applies.  Float32, BatchNorm as every layer's; dropout after the two
+    hidden layers in training when ``cfg.dropout > 0.1``, drawn from the
+    forward's ``generator``."""
+
+    def __init__(self, cfg: Config, generator: torch.Generator,
+                 in_features: Optional[int] = None):
+        super().__init__()
+        self.rate = cfg.dropout
+        kw = dict(activation=cfg.activation, normalization=cfg.normalization,
+                  momentum=cfg.bn_momentum,
+                  bn_momentum_decay_step=cfg.bn_momentum_decay_step,
+                  bn_momentum_decay=cfg.bn_momentum_decay)
+        cin = spatial_dim(cfg) if in_features is None else in_features
+        self.PointNetMLP_0 = PointNetMLP(cin, (32, 64, 128), generator, **kw)
+        self.PointNetMLP_1 = PointNetMLP(256, (256, 256), generator, **kw)
+        self.PointLayer_0 = PointLayer(256, 128, generator, **kw)
+        self.PointLayer_1 = PointLayer(128, 64, generator, **kw)
+        self.PointLayer_2 = PointLayer(64, 1, generator, activation=None,
+                                       normalization=None)
+
+    def forward(self, x: torch.Tensor, epoch: Optional[int] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        from .heads import dropout
+        first = self.PointNetMLP_0(x, epoch)
+        feat1 = first.amax(1, keepdim=True)                  # (B, 1, 128)
+        second = self.PointNetMLP_1(
+            torch.cat([first, feat1.expand_as(first)], -1), epoch)
+        h = self.PointLayer_0(second.amax(1), epoch=epoch)   # (B, 128)
+        if self.training and self.rate > 0.1:
+            h = dropout(h, self.rate, generator)
+        h = self.PointLayer_1(h, epoch=epoch)
+        if self.training and self.rate > 0.1:
+            h = dropout(h, self.rate, generator)
+        return torch.tanh(self.PointLayer_2(h))
+
+
+def rotation_matrix_y(sin_theta: torch.Tensor) -> torch.Tensor:
+    """(B, 1) sin(theta) -> (B, 3, 3) rotation about the y axis."""
+    s = sin_theta[:, 0]
+    c = torch.sqrt(1.0 + 1e-5 - s * s)
+    z, o = torch.zeros_like(s), torch.ones_like(s)
+    return torch.stack([torch.stack([c, z, s], -1),
+                        torch.stack([z, o, z], -1),
+                        torch.stack([-s, z, c], -1)], 1)

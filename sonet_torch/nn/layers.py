@@ -24,7 +24,9 @@ tensor in ``channels_last`` format, so no copy is made for the layout.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -33,6 +35,30 @@ from torch import nn
 
 from ..ops.gather import knn_gather
 from ..parallel import collectives
+
+
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputation():
+    """Marks a forward that rematerialisation runs a second time, in the
+    backward (``torch.utils.checkpoint``'s ``context_fn``; the encoder's
+    ``cfg.remat``): BatchNorm leaves its running statistics alone there,
+    so a step updates them once, as flax's ``nn.remat`` does.  The mark
+    is per thread: the recomputation runs on the thread of the backward
+    that asks for it."""
+    before = getattr(_RECOMPUTE, "on", False)
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = before
+
+
+def recomputing() -> bool:
+    """Whether this thread runs inside ``recomputation()``."""
+    return getattr(_RECOMPUTE, "on", False)
 
 
 def activation_fn(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -145,7 +171,8 @@ class BatchNorm(nn.Module):
     (one read of the input), as in the JAX package; running statistics
     ``r = (1 - m) r + m batch`` with the unbiased variance, where
     ``m = max(momentum * decay^(epoch // step), 0.01)`` from epoch 1 on when
-    ``momentum_decay_step`` is set, else ``momentum``.
+    ``momentum_decay_step`` is set, else ``momentum``; not inside
+    ``recomputation()``, the second forward of a rematerialised block.
 
     Under a mesh (``parallel.collectives.use_mesh``) the training
     statistics are the global ones, as GSPMD computes them for the JAX
@@ -204,15 +231,19 @@ class BatchNorm(nn.Module):
                         mesh_axes) / n
                     mean = sums[0]
                     var = sums[1] - mean.square()
-            with torch.no_grad():
-                m = self.momentum_at(epoch)
-                unbiased = var * (n / max(n - 1, 1))
-                self.running_mean.mul_(1.0 - m).add_(m * mean)
-                self.running_var.mul_(1.0 - m).add_(m * unbiased)
+            if not recomputing():
+                self._update_running(mean, var, n, epoch)
         else:
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, n, epoch):
+        m = self.momentum_at(epoch)
+        unbiased = var * (n / max(n - 1, 1))
+        self.running_mean.mul_(1.0 - m).add_(m * mean)
+        self.running_var.mul_(1.0 - m).add_(m * unbiased)
 
 
 class InstanceNorm(nn.Module):

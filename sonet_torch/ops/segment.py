@@ -5,11 +5,17 @@ Empty-node semantics: an empty node takes the feature of stacked point 0,
 as the reference gathers with ``gather_index * mask_row_max``, and the
 gradient of that gather flows back to point 0.
 
-``segment_max`` is a ``torch.autograd.Function`` whose backward is
+``segment_max`` (also named ``segment_max_scatter``, as in the JAX
+package) is a ``torch.autograd.Function`` whose backward is
 ``route_max_grad``: each output cotangent goes back to the winning
 point(s) through a winner-equality mask.  On exact ties the cotangent is
 split equally among the winners (sum-preserving), as in the JAX package.
 ``segment_max_fast`` (``ops/segment_fast.py``) shares the backward.
+
+``segment_max_onehot``, ``segment_sum_onehot`` and ``segment_mean_onehot``
+are the JAX package's one-hot formulations, kept as oracles (no path
+calls them; the encoder's cluster mean is the product
+``segment_sum_onehot`` writes out).
 """
 
 from __future__ import annotations
@@ -90,6 +96,12 @@ def route_max_grad(data: torch.Tensor, seg_ids: torch.Tensor,
     return grad.to(data.dtype)
 
 
+def _empty_patch(out: torch.Tensor, data: torch.Tensor,
+                 counts: torch.Tensor) -> torch.Tensor:
+    """An empty node -> the feature of point 0."""
+    return torch.where((counts == 0)[..., None], data[:, 0:1, :], out)
+
+
 def _segment_max_forward(data, seg_ids, num_segments):
     """Scatter max (B, M, C) in ``data.dtype``, empty node -> data[:, 0],
     and the int32 counts."""
@@ -99,8 +111,7 @@ def _segment_max_forward(data, seg_ids, num_segments):
     # include_self=False: empty nodes keep the 0 they were cleared to
     out = out.scatter_reduce(1, idx, data, reduce="amax", include_self=False)
     counts = segment_counts(seg_ids, num_segments)
-    empty = (counts == 0)[..., None]
-    return torch.where(empty, data[:, 0:1, :], out), counts
+    return _empty_patch(out, data, counts), counts
 
 
 class _SegmentMax(torch.autograd.Function):
@@ -144,3 +155,42 @@ def segment_max(data: torch.Tensor, seg_ids: torch.Tensor,
         return segment_max_sharded(data, seg_ids, num_segments, counts,
                                    None, scatter_vals)
     return _SegmentMax.apply(data, seg_ids, num_segments)
+
+
+segment_max_scatter = segment_max
+
+
+def segment_max_onehot(data: torch.Tensor, seg_ids: torch.Tensor,
+                       num_segments: int,
+                       counts: torch.Tensor | None = None,
+                       block_m: int = 16) -> torch.Tensor:
+    """Segment max as a masked broadcast, ``block_m`` nodes at a time: the
+    reference's formulation, differentiable by autograd (ties share the
+    cotangent equally).  data (B, N, C), seg_ids (B, N) -> (B, M, C) in
+    ``data.dtype``; an empty node takes data[:, 0]."""
+    M = num_segments
+    if counts is None:
+        counts = segment_counts(seg_ids, M)
+    ids = seg_ids[:, :, None]
+    blocks = []
+    for m0 in range(0, M, block_m):
+        nodes = torch.arange(m0, m0 + block_m, device=seg_ids.device,
+                             dtype=seg_ids.dtype)
+        masked = torch.where((ids == nodes)[..., None], data[:, :, None, :],
+                             -1e10)
+        blocks.append(masked.amax(1))
+    return _empty_patch(torch.cat(blocks, 1)[:, :M], data, counts)
+
+
+def segment_sum_onehot(data: torch.Tensor, onehot: torch.Tensor
+                       ) -> torch.Tensor:
+    """Segment sum as a product with a one-hot mask: data (B, N, C),
+    onehot (B, N, M) -> (B, M, C) float32."""
+    return torch.einsum("...nm,...nc->...mc", onehot.float(), data.float())
+
+
+def segment_mean_onehot(data: torch.Tensor, onehot: torch.Tensor,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """Per-node mean, sum / (count + eps), the reference's cluster mean."""
+    cnt = onehot.float().sum(-2)[..., None]
+    return segment_sum_onehot(data, onehot) / (cnt + eps)

@@ -129,24 +129,37 @@ def mesh_shape_of(value) -> tuple:
         tuple(value) if isinstance(value, (tuple, list)) else (value,))
 
 
+def _divisible_or_exit(shape, cfg) -> None:
+    try:
+        check_mesh_divisible(shape, cfg.batch_size, cfg.input_pc_num)
+    except ValueError as e:
+        raise SystemExit(f"--mesh_shape: {e}")
+
+
 def setup_mesh(cfg, device="cuda"):
     """(cfg, mesh, device) for a run of ``cfg``: the process group brought
     up from ``cfg.distributed`` (``maybe_init_distributed``), the mesh of
     ``cfg.mesh_shape`` over it (data parallel over every process when the
     shape is (1, 1)), ``cfg`` carrying that shape, and this rank's
-    device.  Raises ValueError on junk in the spec, on a mesh that does
-    not cover the process group, and on a mesh of several devices in one
-    process; one process without a mesh gets ``(cfg, None, device)``."""
+    device.  Exits with "--mesh_shape: ..." as soon as the shape is known
+    when ``cfg.batch_size`` or ``cfg.input_pc_num`` does not divide over
+    it, before anything is loaded.  Raises ValueError on junk in the spec,
+    on a mesh that does not cover the process group, and on a mesh of
+    several devices in one process; one process without a mesh gets
+    ``(cfg, None, device)``."""
     from ..device import resolve_device
     from .distributed import (current_device, maybe_init_distributed,
                               process_count)
     shape = normalize_mesh_shape(cfg.mesh_shape)
+    if math.prod(shape) > 1:
+        _divisible_or_exit(shape, cfg)
     if not maybe_init_distributed(cfg.distributed, device):
         if math.prod(shape) > 1:
             make_mesh(shape)                # raises: no process group
         return cfg, None, resolve_device(device)
     if math.prod(shape) == 1:
         shape = (process_count(), 1)
+        _divisible_or_exit(shape, cfg)
     mesh = make_mesh(shape, tuple(cfg.mesh_axes))
     return (cfg.replace(mesh_shape=shape), mesh,
             resolve_device(current_device()))

@@ -525,14 +525,14 @@ class ServingEngine:
         every process of the group, and one process outside a group.  The state is replicated,
         each dispatch's items split over 'data' and its points over
         'points' (the module docstring); ``device`` ``cuda`` is then this
-        rank's card."""
-        _, mesh, dev = pmesh.setup_mesh(
-            Config(mesh_shape=pmesh.mesh_shape_of(mesh_shape)), device)
+        rank's card.  A batch or cloud that the mesh does not divide exits
+        with "--mesh_shape: ..." before the weights are read."""
+        run_cfg = load_config(os.path.join(run_dir, "config.json"))
+        _, mesh, dev = pmesh.setup_mesh(run_cfg.replace(
+            batch_size=batch_size or run_cfg.batch_size, distributed="",
+            mesh_shape=pmesh.mesh_shape_of(mesh_shape)), device)
         cfg, model, _, ckpt = _restore_run(run_dir, batch_size, checkpoint,
                                            device=dev, mesh=mesh)
-        if mesh is not None:
-            pmesh.check_mesh_divisible(pmesh.mesh_shape(mesh),
-                                       cfg.batch_size, cfg.input_pc_num)
         return cls._serving(model, cfg, dev, cfg.batch_size,
                             {"checkpoint": ckpt, "source": "run"}, mesh)
 

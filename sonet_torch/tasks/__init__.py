@@ -2,13 +2,15 @@
 the reference's modelnet/train.py, part-seg/train.py,
 autoencoder/train.py and shrec16/test.py), and the port's batch inference
 (``infer``), one-command reproduction (``reproduce``), serving artifacts
-(``export``) and HTTP daemon (``serve``).
+(``export``), HTTP daemon (``serve``), reference-checkpoint import
+(``import_ckpt``) and training dashboard (``monitor``).
 
 Each module has ``main(argv=None)``, reached as ``sonet-torch <command>``
 (``sonet_torch.cli``) or ``python -m sonet_torch.tasks.<name>``.  Every
-driver takes ``--device {cuda,cuda:N,cpu}`` (default ``cuda``; without a
-card ``cuda`` raises; the ranks of a ``--distributed`` run that name a
-card share it) besides the ``Config`` flags of ``config.parse_args``.
+driver but ``monitor`` takes ``--device {cuda,cuda:N,cpu}`` (default
+``cuda``; without a card ``cuda`` raises; the ranks of a ``--distributed``
+run that name a card share it) besides the ``Config`` flags of
+``config.parse_args``.
 Pictures (eval visuals, the retrieval gallery) need matplotlib: without
 it a driver says so when it starts and leaves them out.
 """
@@ -17,8 +19,8 @@ from __future__ import annotations
 
 import argparse
 
-__all__ = ["autoencode", "classify", "export", "infer", "partseg",
-           "reproduce", "retrieve", "serve"]
+__all__ = ["autoencode", "classify", "export", "import_ckpt", "infer",
+           "monitor", "partseg", "reproduce", "retrieve", "serve"]
 
 
 def _device_name(text: str) -> str:

@@ -146,9 +146,6 @@ class Trainer:
         self.logger = MetricLogger(self.out_dir if self.is_main else None,
                                    quiet=quiet or not self.is_main)
         self.log_every = log_every
-        if self.mesh is not None:
-            pmesh.check_mesh_divisible(cfg.mesh_shape, cfg.batch_size,
-                                       cfg.input_pc_num)
 
         self.train_set = build_dataset(cfg, "train", self.device)
         eval_mode = "val" if cfg.dataset == "shrec" else "test"

@@ -1,10 +1,17 @@
 """Observability utilities of the port (counterparts of the JAX package's
 ``utils``), exported lazily: importing this package loads neither torch
-nor matplotlib."""
+nor matplotlib, so ``sonet-torch monitor`` (``tasks/monitor.py`` ->
+``utils.dashboard``, the standard library only) runs on any machine that
+sees the run directories."""
 
 _EXPORTS = {
     "MetricLogger": ".logging",
     "StepTimer": ".logging",
+    "trace": ".profiling",
+    "enable_nan_checks": ".profiling",
+    "diagnose_grads": ".profiling",
+    "scan_bench": ".profiling",
+    "device_time": ".tprof",
     "HTMLGallery": ".visualize",
     "load_part_colors": ".visualize",
     "save_point_cloud_png": ".visualize",

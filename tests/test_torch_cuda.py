@@ -881,3 +881,77 @@ def test_cpu_stored_export_moves_onto_the_card(cuda_device, tmp_path, form):
         i["dtype"]) for i in ref.manifest["inputs"]}
     got, want = engine.predict(x), ref.predict(x)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the oracles, remat and the profiling utilities on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_equals_the_sorted_and_onehot_oracles(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    data = torch.randn((8, 15000, 384), generator=gen,
+                       device=cuda_device).to(dtype)
+    ids = torch.sort(torch.randint(0, 64, (8, 15000), generator=gen,
+                                   device=cuda_device, dtype=torch.int32),
+                     dim=1).values
+    got = smw.windowed_vals(data, ids, 64)
+    torch.cuda.synchronize()
+    assert chip_smoke._same_as_oracles(torch, got, data, ids, 64)
+
+
+@pytest.mark.parametrize("pooling", ["sorted_window", "scatter"])
+def test_remat_step_on_card_equals_the_plain_step(cuda_device, pooling):
+    cfg = config.tiny_test().replace(pooling=pooling, dropout=0.0)
+    rs = np.random.RandomState(0)
+    batch = {"pc": rs.randn(4, 64, 3), "sn": rs.randn(4, 64, 3),
+             "node": rs.randn(4, 16, 3)}
+    batch = {k: torch.tensor(v, dtype=torch.float32, device=cuda_device)
+             for k, v in batch.items()}
+    batch["label"] = torch.tensor([0, 1, 2, 3], device=cuda_device)
+    init = build_model(cfg, device=cuda_device, seed=0).state_dict()
+    out = {}
+    for remat in (False, True):
+        c = cfg.replace(remat=remat)
+        model = build_model(c, device=cuda_device)
+        model.load_state_dict(init)
+        st = train.init_state(c, device=cuda_device, model=model)
+        step, _ = train.make_steps(c, 100)
+        _, m = step(st, batch, None)
+        out[remat] = (m["loss"].clone(),
+                      {n: p.grad.clone() for n, p in model.named_parameters()
+                       if p.grad is not None},
+                      {k: v.clone() for k, v in model.state_dict().items()})
+    (l0, g0, s0), (l1, g1, s1) = out[False], out[True]
+    assert torch.equal(l0, l1)
+    assert all(torch.equal(g0[k], g1[k]) for k in g0) and set(g0) == set(g1)
+    assert all(torch.equal(s0[k], s1[k]) for k in s0)
+
+
+def test_device_time_reads_the_cards_kernels(cuda_device):
+    from sonet_torch.utils import hlocat, tprof
+    cfg = config.tiny_test()
+    model = build_model(cfg, device=cuda_device)
+    x = [torch.randn(4, 64, 3, device=cuda_device),
+         torch.randn(4, 64, 3, device=cuda_device),
+         torch.randn(4, 16, 3, device=cuda_device)]
+
+    def forward(*t):
+        with torch.inference_mode():
+            return model(*t)[0]
+    total, per_op = tprof.device_time(forward, x, iters=3)
+    assert total > 0 and abs(sum(per_op.values()) - total) < 1e-9
+    cats = hlocat.categorize(per_op)
+    assert cats.get("pooling kernel", 0) > 0 and cats.get("GEMMs", 0) > 0
+
+
+def test_scan_bench_replays_a_graph(cuda_device):
+    from sonet_torch.utils.profiling import scan_bench
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    data = torch.randn((8, 3072, 384), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    ids = torch.sort(torch.randint(0, 64, (8, 3072), generator=gen,
+                                   device=cuda_device, dtype=torch.int32),
+                     dim=1).values
+    ms = scan_bench(smw.windowed_vals, (data, ids, 64), iters=10, reps=5)
+    assert 0 < ms < 1.0

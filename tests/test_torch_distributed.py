@@ -251,6 +251,48 @@ def _case_serve_follow(out, rank):
     return {"out": got, "dispatches": eng.dispatches}
 
 
+def _case_remat(out, rank):
+    """The classifier's steps over (1, 2) with and without ``remat``: the
+    recomputation issues the first PointNet's global BatchNorm all-reduces
+    a second time, on every rank alike."""
+    from sonet_torch import config as tcfg
+    from sonet_torch.parallel import make_mesh
+    cfg = step_cfg(tcfg, "classify", "sorted_window")
+    b = step_batch(cfg)
+    mesh = make_mesh((1, 2))
+    return {"plain": _run_steps(cfg, b, mesh),
+            "remat": _run_steps(cfg.replace(remat=True), b, mesh)}
+
+
+def _case_indivisible(out, rank):
+    """A batch that the world's (2, 1) data-parallel mesh does not divide:
+    the Trainer and ``from_run`` exit with "--mesh_shape: ..." before any
+    dataset is built or any state restored."""
+    from sonet_torch import config as tcfg
+    from sonet_torch import serving
+    from sonet_torch.train import trainer as ttrainer
+    built = []
+    real = ttrainer.build_dataset
+    ttrainer.build_dataset = lambda *a, **k: built.append(a) or real(*a, **k)
+    said = {}
+    try:
+        for what, call in (
+                ("trainer", lambda: ttrainer.Trainer(
+                    trainer_cfg(tcfg, out, "indivisible", batch_size=3),
+                    quiet=True, device="cpu")),
+                ("from_run", lambda: serving.ServingEngine.from_run(
+                    os.path.join(out, "host_replicated_r0"), device="cpu",
+                    batch_size=3))):
+            try:
+                call()
+                said[what] = None
+            except SystemExit as e:
+                said[what] = str(e)
+    finally:
+        ttrainer.build_dataset = real
+    return {"said": said, "built": len(built)}
+
+
 def cases():
     out = [(f"steps_{s[0]}{s[1]}_{t}", _case_steps(s, t))
            for s in MESHES for t in TASKS]
@@ -260,7 +302,8 @@ def cases():
             ("retrieve", _case_retrieve), ("som", _case_som),
             ("engine_12", _case_engine((1, 2))),
             ("engine_21", _case_engine((2, 1))),
-            ("serve_follow", _case_serve_follow)]
+            ("serve_follow", _case_serve_follow),
+            ("remat_12", _case_remat), ("indivisible", _case_indivisible)]
     return out
 
 
@@ -371,6 +414,31 @@ def test_steps_match_one_process(pool, shape, task):
         want, got = one["grads"][name], mesh["grads"][name]
         assert (float(np.abs(got - want).max())
                 <= GRAD_TOL[task] * float(np.abs(want).max()) + 1e-6), name
+
+
+def test_remat_steps_over_1x2_equal_the_plain_ones(pool):
+    out, logs = pool
+    for rank in range(WORLD):
+        r = read(out, logs, "remat_12", rank)
+        plain, remat = r["plain"], r["remat"]
+        assert remat["losses"] == plain["losses"]
+        for part in ("grads", "state"):
+            assert set(remat[part]) == set(plain[part])
+            for k, want in plain[part].items():
+                np.testing.assert_array_equal(remat[part][k], want,
+                                              err_msg=k)
+        for k, want in plain["eval"].items():
+            np.testing.assert_array_equal(remat["eval"][k], want, err_msg=k)
+
+
+def test_an_indivisible_batch_exits_before_anything_is_built(pool):
+    out, logs = pool
+    for rank in range(WORLD):
+        r = read(out, logs, "indivisible", rank)
+        assert r["built"] == 0
+        for what in ("trainer", "from_run"):
+            assert r["said"][what] == ("--mesh_shape: batch_size 3 must "
+                                       "divide over the data axis (2)"), what
 
 
 # ---------------------------------------------------------------------------
