@@ -188,7 +188,21 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    (8, 15000, 384) within 5% of phase 3's graph reading;
 25. monitor: ``utils.dashboard.make_dashboard_server`` over the trainer
    run answering one request with that run's metric rows;
-26. mesh: ``config.modelnet40()`` on two ranks of the one card, launched
+26. quality: the quality chain's tools at full width on tiny generated
+   trees: ``tools/torch_make_modelnet_scale.py`` (40 classes of 2 train
+   and 1 test shapes of 10,000 points, hardness 0.15), ``prep som`` on
+   the card, and ``tools/torch_soak.py --epochs 1 --band --input_pipeline
+   device`` in this process: rc 1 and its band line ``OUTSIDE`` (one
+   epoch on 80 shapes cannot reach modelnet40's band), read by
+   ``tools/torch_quality.py``'s parser; the same for shapenetpart on
+   ``tools/torch_make_shapenet_scale.py``'s 16 categories of 2 train and
+   1 test shapes (its captured eval computes the IoU); then
+   ``tools/torch_make_shrec_scale.py`` (55 classes of 6 shapes) and
+   ``tools/torch_soak_retrieval.py`` for one epoch: 55 rank files, the
+   test split's ground truth (id // 6) from every class; 7 captures,
+   kernel 1 in a warm-up and a capture of each, with every launch count
+   read from 0 before the three soaks;
+27. mesh: ``config.modelnet40()`` on two ranks of the one card, launched
    as a user launches them (``python -m torch.distributed.run
    --standalone --nproc_per_node 2``; this script's ``--mesh_steps``
    mode), ``--device cuda:0``: the ranks share the card, so their group
@@ -209,17 +223,17 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    one rounding away (``NUDGE``); under (1, 2) a planted fault, node-level
    gradients summed over ``points``, must fail the gradient gate; every
    rank counts both kernels' launches and the graph replays from 0 around
-   its main path.  Beside phase 29, a world of
+   its main path.  Beside phase 30, a world of
    one over NCCL (``--mesh_nccl``, ``--device cuda``): the train step
    over its (1, 1) mesh, gradients and metrics all-reduced by NCCL inside
    the graph, captured, and one replay `==` the captured step over no
    mesh;
-27. mesh_segment: phase 26's (1, 2) step at ``config.shapenetpart()``
+28. mesh_segment: phase 27's (1, 2) step at ``config.shapenetpart()``
    width;
-28. mesh_autoencode: the same at ``config.autoencoder()`` width, with the
+29. mesh_autoencode: the same at ``config.autoencoder()`` width, with the
    Chamfer pairs whose nearest point moves, over the mesh and from the
    nudged weights, counted against one process's;
-29. mesh_trainer: ``sonet-torch classify --distributed auto --device
+30. mesh_trainer: ``sonet-torch classify --distributed auto --device
    cuda:0`` on two ranks over the "reproduce" tree (this script's
    ``--rank_cli`` mode counts each rank's launches around ``cli.main``):
    the host pipeline for two epochs, a SIGTERM to rank 1 alone once
@@ -232,10 +246,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    within 2%, the same rows, each item's class scores within the bf16
    rule and its predicted class the same wherever the two best scores
    are further apart than that;
-30. kernel 1's calls by shape over every phase after 3, and a JSON line
-   of every kernel with its launches on each of the twenty-four paths
+31. kernel 1's calls by shape over every phase after 3, and a JSON line
+   of every kernel with its launches on each of the twenty-five paths
    beside its graph replays there, error and times;
-31. last line: {"ok": true, "device": {...}}.
+32. last line: {"ok": true, "device": {...}}.
 
 ``--profile DIR`` also writes torch.profiler tables of each B=8 forward
 and train step to ``DIR/profile_<forward|train_step>_<task>.txt``, of the
@@ -3454,6 +3468,124 @@ def phase_monitor(runs):
         raise AssertionError("the dashboard does not answer the run's rows")
 
 
+def _tool_output(name, main, argv):
+    """(exit code, standard output) of the quality tool ``name``'s
+    ``main(argv)`` run in this process; its output is shown as it
+    comes."""
+    import contextlib
+    import torch
+    log(f"tools/{name}.py {' '.join(argv)}")
+    tee, rc = _Tee(sys.stdout), 0
+    with contextlib.redirect_stdout(tee):
+        try:
+            main(argv)
+        except SystemExit as e:
+            rc = e.code
+    torch.cuda.synchronize()
+    return rc, tee.copy.getvalue()
+
+
+def phase_quality(kernel_counters, on_path, runs):
+    """The quality chain's tools (``tools/torch_*``) on the card at full
+    width: a ModelNet40 tree of 40 classes of 2 train and 1 test shapes, a
+    ShapeNetPart tree of 16 categories of 2 and 1 and a SHREC16 tree of 55
+    classes of 6 shapes, written by the port's generators at the bands'
+    hardness, nodes fitted by ``prep som``; one epoch of ``torch_soak.py
+    --band`` (device pipeline) on the first two, whose verdicts must be
+    OUTSIDE, and of ``torch_soak_retrieval.py``, whose ground truth must
+    come from the generator's blocks.  Returns (the launches of every
+    kernel in the three soaks, their replays)."""
+    import contextlib
+    import io
+    import torch
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import torch_make_modelnet_scale
+    import torch_make_shapenet_scale
+    import torch_make_shrec_scale
+    import torch_quality
+    import torch_soak
+    import torch_soak_retrieval
+    from sonet_torch.data import prep
+
+    trees = {"modelnet40": os.path.join(runs, "q_mn40"),
+             "shapenetpart": os.path.join(runs, "q_snpart"),
+             "shrec16": os.path.join(runs, "q_shrec")}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):   # a line a class
+        torch_make_modelnet_scale.main(
+            ["--out", trees["modelnet40"], "--train_per_class", "2",
+             "--test_per_class", "1", "--hardness", "0.15"])
+        torch_make_shapenet_scale.main(
+            ["--out", trees["shapenetpart"], "--train_per_cat", "2",
+             "--test_per_cat", "1", "--hardness", "0.7"])
+        torch_make_shrec_scale.main(["--out", trees["shrec16"],
+                                     "--per_class", "6", "--hardness",
+                                     "0.35"])
+    t1 = time.perf_counter()
+    for root in trees.values():
+        prep.main(["som", "--root", root, "--device", "cuda"])
+    torch.cuda.synchronize()
+    log(f"quality trees: 120 + 48 + 330 shapes generated in "
+        f"{t1 - t0:.3f} s, their nodes fitted in "
+        f"{time.perf_counter() - t1:.3f} s (host clock)")
+    if any(torch_quality.need_som(p, root, 8) for p, root in trees.items()):
+        raise AssertionError("prep som left a tree without nodes")
+
+    _reset(kernel_counters)
+    with _GraphCounter() as graphs:
+        soaks = {p: _tool_output("torch_soak", torch_soak.main, [
+            "--preset", p, "--dataroot", trees[p], "--epochs", "1",
+            "--band", "--input_pipeline", "device", "--out",
+            os.path.join(runs, "q_soak")])
+            for p in ("modelnet40", "shapenetpart")}
+        got = {}
+        r_rc, _ = _tool_output(
+            "torch_soak_retrieval",
+            lambda a: got.setdefault("r", torch_soak_retrieval.main(a)),
+            ["--dataroot", trees["shrec16"], "--epochs", "1",
+             "--per_class_block", "6", "--out",
+             os.path.join(runs, "q_soak_shrec")])
+    launches = _launch_counts(kernel_counters)
+    log(f"torch_soak_retrieval: rc {r_rc}; in the three soaks "
+        f"{graphs.captures} captures, {graphs.replays} replays, kernel "
+        f"launches {launches}")
+    for preset, key in (("modelnet40", "accuracy"), ("shapenetpart", "iou")):
+        rc, out = soaks[preset]
+        value, inside, ev, clouds = torch_quality.parse_soak_output(out, rc)
+        log(f"torch_soak {preset}: rc {rc}, parsed value {value}, inside "
+            f"{inside}, eval {ev}, {clouds} clouds/s")
+        band = [ln for ln in out.splitlines()
+                if ln.startswith("band check:")]
+        # one epoch on 80 or 32 shapes cannot reach a band
+        if rc != 1 or len(band) != 1 or "OUTSIDE" not in band[0] or (
+                inside is not False or value is None
+                or value != round(ev[key], 4)):
+            raise AssertionError(f"torch_soak {preset}: want rc 1 and one "
+                                 f"OUTSIDE band line that the parser reads")
+        if "lr 0.001, captures 1)" not in out:
+            raise AssertionError(f"torch_soak {preset}: the epoch line "
+                                 f"lacks its lr or its capture")
+    metrics, ids, labels = got["r"]
+    ranks = os.listdir(os.path.join(runs, "q_soak_shrec", "rank"))
+    log(f"torch_soak_retrieval: {len(ids)} test ids, ground truth "
+        f"{sorted(set(labels.tolist()))[:5]}..., metrics {metrics}")
+    if r_rc != 0 or len(ranks) != 55 or len(set(labels.tolist())) != 55 or (
+            not (labels == ids // 6).all() or not labels.any()):
+        raise AssertionError("torch_soak_retrieval: want 55 rank files and "
+                             "the ground truth of every class")
+    # train and eval of each soak, and the retrieval's scoring: a capture
+    # each, kernel 1 in its warm-up and its capture; one replay a step
+    want_replays = 80 // 8 + 5 + 32 // 8 + 2 + 220 // 8 + 7 + 7
+    if (graphs.captures, graphs.replays) != (7, want_replays):
+        raise AssertionError(f"want 7 captures and {want_replays} replays")
+    for n in on_path:
+        if launches[n] != 14:
+            raise AssertionError(f"{n} launched {launches[n]} times, want "
+                                 f"a warm-up and a capture of 7 graphs")
+    return launches, graphs.replays
+
+
 def _get(url):
     import urllib.request
     with urllib.request.urlopen(url, timeout=60) as r:
@@ -4425,6 +4557,8 @@ def main(argv=None) -> int:
             "profile",
             lambda: phase_profile(counters, on_path, kernels, args.profile))
         timed("monitor", lambda: phase_monitor(runs))
+        by_path["quality"], replays["quality"] = timed(
+            "quality", lambda: phase_quality(counters, on_path, runs))
         # ranks launched with torchrun: their launches counted in the ranks
         mesh_launches, mesh_replays = timed(
             "mesh, mesh_segment, mesh_autoencode",

@@ -32,6 +32,19 @@ for ci, parts in enumerate(PART_LABEL):
     PART_TABLE[ci, : len(parts)] = parts
 PART_VALID = PART_TABLE >= 0                 # (16, 6) bool
 
+# device -> (PART_TABLE, PART_VALID) there, copied once: a CUDA graph may
+# not copy from pageable host memory while it is captured, and every
+# capture runs its step once before (train/graphs.py), which copies them
+_ON_DEVICE: dict = {}
+
+
+def _part_tables(dev: torch.device):
+    tables = _ON_DEVICE.get(dev)
+    if tables is None:
+        tables = _ON_DEVICE[dev] = (torch.from_numpy(PART_TABLE).to(dev),
+                                    torch.from_numpy(PART_VALID).to(dev))
+    return tables
+
 
 def iou_per_shape(seg_pred: torch.Tensor, seg_gt: torch.Tensor,
                   label: torch.Tensor) -> torch.Tensor:
@@ -40,10 +53,10 @@ def iou_per_shape(seg_pred: torch.Tensor, seg_gt: torch.Tensor,
     seg_pred, seg_gt (B, N) int part labels; label (B,) int category.
     Returns (B,) float32: the mean IoU over the category's parts.
     """
-    dev = seg_gt.device
+    table, table_valid = _part_tables(seg_gt.device)
     label = label.long()
-    parts = torch.from_numpy(PART_TABLE).to(dev)[label]    # (B, MAX_PARTS)
-    valid = torch.from_numpy(PART_VALID).to(dev)[label]    # (B, MAX_PARTS)
+    parts = table[label]                                   # (B, MAX_PARTS)
+    valid = table_valid[label]                             # (B, MAX_PARTS)
 
     gt = seg_gt[:, None, :] == parts[:, :, None]           # (B, MP, N)
     pr = seg_pred[:, None, :] == parts[:, :, None]

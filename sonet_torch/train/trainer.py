@@ -416,7 +416,8 @@ class Trainer:
         """The device pipeline's epoch: the train step replayed once per row
         of the epoch's table (each chunk's, for a chunked split), the
         stacked metrics fetched once a part, logged every ``log_every``
-        steps."""
+        steps.  Besides the last step's metrics it gives each metric's
+        mean over the epoch's steps as ``mean_<name>``."""
         t0 = time.perf_counter()
         parts = [self.train_graph.run(dd, table) for dd, table, _ in
                  self._device_splits(self.device_train, True, epoch, True)]
@@ -429,6 +430,7 @@ class Trainer:
                             {k: float(v[i]) for k, v in ms.items()},
                             epoch=epoch, prefix="train_")
         last = {k: float(v[-1]) for k, v in ms.items()}
+        last.update({f"mean_{k}": float(v.mean()) for k, v in ms.items()})
         last["sec_per_step"] = (time.perf_counter() - t0) / steps
         return last
 

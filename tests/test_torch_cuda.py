@@ -322,6 +322,23 @@ def test_segmenter_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
+def test_captured_segment_eval_step_equals_eager(cuda_device):
+    """The segmenter's eval step, IoU included, as a captured graph (the
+    ``Trainer``'s eval on a card): its part table reaches the card before
+    the capture, which may not copy from pageable host memory."""
+    from sonet_torch.train.graphs import StepGraph
+    cfg = _seg_cfg()
+    state = train.init_state(cfg, device=cuda_device, seed=0)
+    _, eval_step = train.make_steps(cfg, 1)
+    batch = _seg_batch(cfg, cuda_device)
+    graph = StepGraph(lambda **b: eval_step(state, b), cuda_device)
+    got = {k: v.clone() for k, v in graph(**batch).items()}
+    want = eval_step(state, batch)
+    assert graph.captures == 1 and graph.replays == 1
+    assert torch.equal(got["iou_i"], want["iou_i"])
+    assert torch.equal(got["loss"], want["loss"])
+
+
 def test_segment_train_step_on_card_matches_cpu(cuda_device):
     """One float32 train step: the loss, one kernel launch, a gradient for
     every trainable tensor.  The gradients themselves are compared under
