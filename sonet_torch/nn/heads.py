@@ -18,14 +18,25 @@ from .layers import PointLayer
 NUM_SHAPE_CATEGORIES = 16  # ShapeNetPart object categories
 
 
+def apply_dropout(x: torch.Tensor, keep: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """The kept entries of ``x`` (``keep`` True) divided by the keep
+    probability 1 - rate, the others 0, as flax's ``nn.Dropout`` computes
+    it: the probability is a weakly typed constant there, so it is rounded
+    to ``x``'s dtype before the division (bfloat16: 0.3 becomes 0.30078125,
+    a scale of 3.3247 where 1 / 0.3 is 3.3333)."""
+    keep_prob = float(torch.tensor(1.0 - rate, dtype=x.dtype))
+    return torch.where(keep, x / keep_prob, 0.0)
+
+
 def dropout(x: torch.Tensor, rate: float,
             generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Inverted dropout, as flax's ``nn.Dropout``: keep each entry with
     probability 1 - rate, drawn from ``generator`` (the default generator
-    when None), and scale the kept entries by 1 / (1 - rate)."""
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, 0.0)
+    when None), and scale the kept entries as ``apply_dropout`` does."""
+    keep = torch.rand(x.shape, generator=generator,
+                      device=x.device) < 1.0 - rate
+    return apply_dropout(x, keep, rate)
 
 
 class ClassifierHead(nn.Module):

@@ -5,7 +5,8 @@ tools (``tools/make_*_scale.py``, ``soak.py``, ``soak_retrieval.py``,
 * Each ``torch_make_*_scale.py`` writes the tree its JAX original writes
   for the same arguments and seed (the original run in a subprocess on
   the CPU): the same files, ``.npy`` / ``.txt`` / ``.json`` byte for byte
-  and ``.npz`` array for array (dtype, shape, ``==``).
+  and ``.npz`` array for array (dtype, shape, ``==``) and member for
+  member byte for byte (``mnist.npz`` among them).
 * ``torch_soak.load_band``, ``torch_quality.parse_soak_output`` and
   ``torch_quality.FAMILIES`` equal the JAX tools'.
 * ``torch_soak.py`` and ``torch_soak_retrieval.py`` with ``--device cpu``
@@ -29,6 +30,7 @@ import os
 import shutil
 import subprocess
 import sys
+import zipfile
 
 import numpy as np
 import pytest
@@ -38,6 +40,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOOLS = os.path.join(REPO, "tools")
 sys.path.insert(0, TOOLS)
 
+import torch_make_mnist_scale  # noqa: E402
 import torch_make_modelnet_scale  # noqa: E402
 import torch_make_shapenet_scale  # noqa: E402
 import torch_make_shrec_scale  # noqa: E402
@@ -117,6 +120,8 @@ GENERATORS = {
     "shrec": (torch_make_shrec_scale, "make_shrec_scale.py",
               ["--classes", "3", "--per_class", "6", "--points", "256",
                "--hardness", "0.35", "--seed", "3"]),
+    "mnist": (torch_make_mnist_scale, "make_mnist_scale.py",
+              ["--train", "40", "--test", "10", "--seed", "5"]),
 }
 
 
@@ -166,6 +171,12 @@ def test_generator_writes_what_the_jax_original_writes(family, jax_trees,
                     assert x[k].dtype == y[k].dtype, (rel, k)
                     assert x[k].shape == y[k].shape, (rel, k)
                     assert np.array_equal(x[k], y[k]), (rel, k)
+            # each member's bytes too (the archives' own bytes hold the
+            # time each member was written)
+            with zipfile.ZipFile(a) as x, zipfile.ZipFile(b) as y:
+                assert x.namelist() == y.namelist(), rel
+                for name in x.namelist():
+                    assert x.read(name) == y.read(name), (rel, name)
         else:
             assert rel.endswith((".npy", ".txt", ".json")), rel
             with open(a, "rb") as x, open(b, "rb") as y:
@@ -411,3 +422,136 @@ def test_rounding_probe_rounds_the_three_products():
         # 7e-4 of the largest entry, held to 1e-2 of it
         assert not torch.equal(p, r)
         assert (p - r).abs().max() <= 1e-2 * p.abs().max()
+
+
+def _bf16_model():
+    from sonet_torch.config import tiny_test
+    from sonet_torch.models import build_model
+    cfg = tiny_test().replace(compute_dtype="bfloat16")
+    rng = np.random.default_rng(1)
+    pc, sn = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.input_pc_num, 3)).astype(np.float32)) for _ in range(2))
+    node = torch.from_numpy(rng.standard_normal(
+        (2, cfg.node_num, 3)).astype(np.float32))
+    return build_model(cfg, device="cpu"), (pc, sn, node)
+
+
+def test_rounding_probe_rounds_the_float32_head():
+    """``head`` rounds every dense layer without a compute dtype: in a
+    bfloat16 classifier only ``fc3``, once a forward, by a rounding's
+    worth."""
+    import torch_tpu_rounding_probe as probe
+    model, args = _bf16_model()
+    model.eval()
+    with torch.no_grad():
+        plain = model(*args)[0]
+        with probe.installed(["head"]) as rounding:
+            rounded = model(*args)[0]
+        assert rounding.calls == {"head": 1}
+        again = model(*args)[0]
+    assert torch.equal(plain, again) and not torch.equal(plain, rounded)
+    assert (plain - rounded).abs().max() <= 1e-2 * plain.abs().max()
+
+
+def _quantization_error(root, rows=8):
+    """The mean over the tree's shapes of each point's squared distance to
+    its nearest node."""
+    from sonet_torch.som import query
+    errs = []
+    for d, _, fs in os.walk(os.path.join(root, f"{rows}x{rows}_som_nodes")):
+        for f in fs:
+            rel = os.path.relpath(os.path.join(d, f),
+                                  os.path.join(root, f"{rows}x{rows}_som_nodes"))
+            pc = torch.from_numpy(np.load(os.path.join(root, rel))[None, :, :3])
+            node = torch.from_numpy(np.load(os.path.join(d, f))[None])
+            idx, _ = query(node, pc)
+            errs.append(float((pc - node[0][idx[0].long()]).square().sum(-1)
+                              .mean()))
+    return float(np.mean(errs))
+
+
+def test_rounding_probe_refits_the_som_and_soaks(trees, tmp_path):
+    """``--refit_som`` fits the tree's nodes again with the ``som``
+    rounding (the distances' product in bfloat16): other nodes than the
+    float32 refit's from the same draws, of about the same quantization
+    error; then the soak runs with every rounding in place."""
+    import torch_tpu_rounding_probe as probe
+    root = str(tmp_path / "mn")
+    shutil.copytree(trees["modelnet"], root)
+    nodes = os.path.join(root, "8x8_som_nodes")
+    first = sorted(os.path.join(d, f) for d, _, fs in os.walk(nodes)
+                   for f in fs)[0]
+    with contextlib.redirect_stdout(io.StringIO()):
+        probe.refit_som(root, "cpu", som_sample=256)
+    exact, exact_err = np.load(first), _quantization_error(root)
+    rc, out = _run(probe.main, [
+        "--round", "all", "--refit_som", "--som_sample", "256",
+        "--dataroot", root, "--epochs",
+        "1", "--device", "cpu", "--input_pipeline", "device", "--out",
+        str(tmp_path / "runs"), "--classes", "3", "--assert_band", "0,1"]
+        + NARROW)
+    assert rc == 0, out
+    assert "with the som rounding" in out
+    calls = eval(out.split("rounding probe calls: ")[1].splitlines()[0])
+    assert set(calls) == {"bmm", "centers", "som", "head"}
+    assert all(n > 0 for n in calls.values()), calls
+    rounded, rounded_err = np.load(first), _quantization_error(root)
+    assert rounded.shape == exact.shape and not np.array_equal(rounded, exact)
+    print(f"quantization error: float32 {exact_err:.6f}, rounded "
+          f"{rounded_err:.6f}; nodes apart by up to "
+          f"{np.abs(rounded - exact).max():.4f}")
+    assert abs(rounded_err - exact_err) <= 0.1 * exact_err
+
+
+class _Bf16ExactBmm:
+    """``torch`` as ``ops/segment.py`` sees it, noting whether each operand
+    of its ``bmm`` (``route_max_grad``'s one-hot products) is exact in
+    bfloat16."""
+
+    def __init__(self):
+        self.exact = []
+
+    def bmm(self, a, b):
+        self.exact += [torch.equal(x, x.bfloat16().to(x.dtype))
+                       for x in (a, b)]
+        return torch.bmm(a, b)
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+def test_rounding_probe_knnmax_starves_the_encoder(monkeypatch):
+    """``knnmax`` keeps the forward's bits and, in bfloat16, routes the
+    max over the neighbours to the float32 values: hardly any equals a
+    bfloat16 maximum, so the kNN layer and the first PointNet, which learn
+    only through that max, get almost no gradient; the head's gradients
+    stay.  The plain backward's one-hot products of pooling's gradient
+    take operands exact in bfloat16, which is why the probe leaves them
+    unrounded."""
+    import torch_tpu_rounding_probe as probe
+    from sonet_torch.ops import segment
+    model, args = _bf16_model()
+    model.train()
+    route = _Bf16ExactBmm()
+    monkeypatch.setattr(segment, "torch", route)
+
+    def run():
+        model.zero_grad()
+        logits = model(*args, generator=torch.Generator().manual_seed(0))[0]
+        logits.float().square().sum().backward()
+        return logits.detach(), {n: p.grad.clone() for n, p in
+                                 model.named_parameters()
+                                 if p.grad is not None}
+
+    plain_out, plain = run()
+    assert len(route.exact) == 6 and all(route.exact)   # 3 products
+    with probe.installed(["knnmax"]) as rounding:
+        out, starved = run()
+    assert rounding.calls == {"knnmax": 1}
+    assert torch.equal(out, plain_out)
+    for name, g in plain.items():
+        ratio = float(starved[name].norm() / g.norm().clamp_min(1e-30))
+        if name.startswith(("encoder.knnlayer.", "encoder.first_pointnet.")):
+            assert ratio < 0.05, (name, ratio)
+        elif name.startswith("classifier."):
+            assert ratio > 0.5, (name, ratio)
