@@ -18,7 +18,9 @@ Two holders share one warm-up and capture (``_warm_up``, ``_capture``):
   (S, ...) buffer per metric live on the card; a replay reads the row the
   counter names, runs the step, writes its metrics into that row of the
   buffers and advances the counter, so an epoch is S replays and one
-  fetch of the metrics.  The device pipeline runs so.
+  fetch of the metrics.  The device pipeline runs so.  In a profiler's
+  trace each replay (each eager step on the CPU) is the range
+  ``sonet:EpochGraph.replay`` (``utils/spans.py``).
 
 On the CPU both run the same function eagerly.
 
@@ -55,7 +57,12 @@ from typing import Any, Callable, Dict, Hashable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.spans import span
+
 Step = Callable[[object, torch.Tensor], Dict[str, torch.Tensor]]
+
+# the profiler range around each of EpochGraph's steps (utils/spans.py)
+REPLAY = "sonet:EpochGraph.replay"
 
 
 def _no_snapshot():
@@ -248,7 +255,8 @@ class EpochGraph:
     def _run_eager(self, data, table: np.ndarray) -> Dict[str, np.ndarray]:
         rows = []
         for row in table:
-            m = self.step(data, torch.from_numpy(row).to(self.device))
+            with span(REPLAY):
+                m = self.step(data, torch.from_numpy(row).to(self.device))
             rows.append({k: v.detach() for k, v in m.items()})
         return {k: torch.stack([r[k] for r in rows]).cpu().numpy()
                 for k in rows[0]}
@@ -318,7 +326,8 @@ class EpochGraph:
             if (self._graph is None
                     or self._bound != (self._addresses(data), key)):
                 self._capture(data, key)
-            self._graph.replay()
+            with span(REPLAY):
+                self._graph.replay()
             self.replays += 1
             self.on_replay()
         return {k: v[:S].cpu().numpy() for k, v in self._out.items()}

@@ -1,0 +1,37 @@
+"""Named ranges of the program in a ``torch.profiler`` trace.
+
+``with span("sonet:<name>"):`` marks the work inside it as a range of
+that name (``torch.profiler.record_function``).  When the profiler also
+records CUDA, kineto adds a device-side row of the same name, from the
+first kernel the range launched to the last, on the kernels' clock.  The
+``sonet:`` prefix keeps the program's ranges apart from those of whoever
+profiles it.
+
+When no profiler is recording, ``span`` makes one check and returns a
+shared do-nothing context: it enters no profiler code and allocates
+nothing.
+
+The program's spans, and what reads them:
+
+* ``sonet:EpochGraph.replay`` (``train/graphs.py``): one replay of a
+  captured step, or one eager step on a host without a card.  Read by
+  ``tools/torch_replay_ranges.py``, which compares the benchmark's replays
+  of a traced train part (``benchmark/replays.py``) with these rows.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from torch.autograd import _profiler_enabled
+from torch.autograd.profiler import record_function
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context marking its body as the range ``name`` when a profiler is
+    recording, and a shared do-nothing context when none is."""
+    if not _profiler_enabled():
+        return _OFF
+    return record_function(name)

@@ -703,6 +703,44 @@ def test_captured_replays_draw_anew_as_eager_steps_do(cuda_device):
             np.testing.assert_array_equal(got[k][i], want[i][k].cpu().numpy())
 
 
+def test_captured_replays_are_device_rows_of_their_range(cuda_device):
+    """Under a profiler that records CUDA, each replay of a captured epoch
+    gives one device row ``sonet:EpochGraph.replay``, and the rows follow
+    one another without overlapping."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sonet_torch.data import device_pipeline as dp
+    from sonet_torch.train.graphs import REPLAY, EpochGraph
+    cfg = config.tiny_test().replace(input_pc_num=64)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    data = dp.DeviceData(
+        pc=torch.randn((6, 200, 3), generator=g).to(cuda_device),
+        sn=torch.randn((6, 200, 3), generator=g).to(cuda_device),
+        node=torch.randn((6, cfg.node_num, 3), generator=g).to(cuda_device),
+        label=torch.arange(6).to(cuda_device))
+
+    def step(d, idx):
+        b = dp.sample_batch(d, idx, gen, cfg, train=True)
+        return {"pc": b["pc"].sum(), "sn": b["sn"].sum()}
+
+    table = np.array([[0, 1, 2, 3]] * 4)
+    graph = EpochGraph(step, cuda_device, generators=(gen,))
+    graph.run(data, table)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.run(data, table)
+    assert graph.captures == 1 and graph.replays == 8
+    rows = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA
+                  and e.name() == REPLAY)
+    assert len(rows) == len(table)
+    assert all(e > s for s, e in rows)
+    assert all(a[1] <= b[0] for a, b in zip(rows, rows[1:]))
+
+
 def test_device_pipeline_trainer_on_card(cuda_device, tmp_path):
     """A device-pipeline run: kernel 1 launched only by warm-ups and
     captures, the epoch replayed; eval twice to the same bits; the run

@@ -1,0 +1,95 @@
+"""The program's profiler ranges (``sonet_torch/utils/spans.py``) on the
+CPU: ``EpochGraph.run`` marks each step as ``sonet:EpochGraph.replay``,
+changes nothing it computes, and enters no profiler code while none is
+recording.  No JAX here."""
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from sonet_torch import config
+from sonet_torch.data.device_pipeline import DeviceData, sample_batch
+from sonet_torch.train import init_state, make_steps
+from sonet_torch.train import graphs
+from sonet_torch.train.state import snapshot
+from sonet_torch.utils import spans
+
+ROWS = 3
+
+
+def _tiny_epoch():
+    """A tiny classifier's train step over a resident split, as the device
+    pipeline runs it, an ``EpochGraph`` over it, a table of ``ROWS`` rows
+    and a function that puts the state and the draws back."""
+    cfg = config.tiny_test()
+    g = torch.Generator().manual_seed(0)
+    T = 12
+    data = DeviceData(pc=torch.randn((T, 80, 3), generator=g),
+                      sn=torch.randn((T, 80, 3), generator=g),
+                      node=torch.randn((T, cfg.node_num, 3), generator=g),
+                      label=torch.randint(0, cfg.classes, (T,), generator=g))
+    state = init_state(cfg, device="cpu", seed=0, steps_per_epoch=ROWS)
+    train_step, _ = make_steps(cfg, ROWS)
+    gen = torch.Generator().manual_seed(1)
+
+    def step(d, idx):
+        _, metrics = train_step(state, sample_batch(d, idx, gen, cfg,
+                                                    train=True), gen)
+        return metrics
+
+    table = np.arange(ROWS * cfg.batch_size).reshape(ROWS, cfg.batch_size)
+    restore_state, gen_state = snapshot(state), gen.get_state()
+
+    def restore():
+        restore_state()
+        gen.set_state(gen_state)
+    return graphs.EpochGraph(step, "cpu", generators=(gen,)), data, table, \
+        restore
+
+
+@pytest.fixture
+def one_thread():
+    """One CPU thread: with several, the CPU's parallel reductions sum in
+    another order from run to run, so two runs of a step differ in their
+    last bits whatever the profiler does."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _sonet_ranges(prof):
+    return [e.name for e in prof.events() if e.name.startswith("sonet:")]
+
+
+def test_one_replay_range_a_row_and_the_same_metrics(one_thread):
+    graph, data, table, restore = _tiny_epoch()
+    plain = graph.run(data, table)
+    restore()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = graph.run(data, table)
+    assert _sonet_ranges(prof) == [graphs.REPLAY] * ROWS
+    assert set(plain) == set(traced) and plain
+    for k in plain:
+        np.testing.assert_array_equal(plain[k], traced[k])
+
+
+def test_span_enters_no_profiler_code_when_off(monkeypatch):
+    entered = []
+    real = spans.record_function
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+    monkeypatch.setattr(spans, "record_function", counting)
+    graph, data, table, restore = _tiny_epoch()
+    graph.run(data, table)
+    assert entered == []
+    assert spans.span("sonet:x") is spans.span("sonet:y")
+    restore()
+    with profile(activities=[ProfilerActivity.CPU]):
+        graph.run(data, table)
+    assert entered == [graphs.REPLAY] * ROWS
