@@ -28,7 +28,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    plain versions of the function, ``ops.segment_max_sorted`` and
    ``ops.segment_max_onehot``.  Kernel 2 (``segment_argmax``) is on no
    path of the model and is held here only, also against kernel 1's
-   values;
+   values.  The fused BatchNorm (``batchnorm_act``: train forward, eval
+   forward, backward) at each main-path shape in bf16 against its plain
+   version, timed by graph beside its bound, the plain version and
+   ``F.batch_norm`` with ``relu``; its launches are counted by mode on
+   every path (``batchnorm_act.train``, ``.eval``, ``.backward``);
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
    width, seeded random weights) served through ``ServingEngine`` on the
    card, its forward a captured CUDA graph: the warm-up captures it
@@ -522,7 +526,8 @@ def phase_kernels():
     ids = _flagship_ids(torch, B, N, M, k, gen, dev)           # (8, 15000)
     return [_check_segment_max_window(torch, gen, ids, M,
                                       _mnist_ids(torch, np, dev)),
-            _check_segment_argmax(torch, gen, ids, M)]
+            _check_segment_argmax(torch, gen, ids, M),
+            *_check_batchnorm_act(torch, gen)]
 
 
 def host_us_per_call(fn, calls: int = 200) -> float:
@@ -923,6 +928,138 @@ def _check_segment_argmax(torch, gen, ids, M):
             "note": "on no path of the model; held in phase 3 only"}
 
 
+# the fused BatchNorm's (rows, width) on the main path: the first
+# PointNet over 8 x 15,000 stacked points, the segmenter head's first
+# layer over 24,576, the kNN layer's 4,608 (two-pass) and a head's rank 2
+BATCHNORM_SHAPES = ((120000, 64), (120000, 128), (120000, 256),
+                    (24576, 1024), (4608, 512), (8, 512))
+BATCHNORM_MODES = ("train", "eval", "backward")
+
+
+class _BatchNormCounter:
+    """One mode of ``batchnorm_act.launches`` read and reset as a kernel
+    counter's ``launches``."""
+
+    def __init__(self, mode):
+        self.mode = mode
+
+    @property
+    def launches(self):
+        from sonet_torch.ops.cuda import batchnorm_act
+        return batchnorm_act.launches[self.mode]
+
+    @launches.setter
+    def launches(self, n):
+        from sonet_torch.ops.cuda import batchnorm_act
+        batchnorm_act.launches[self.mode] = n
+
+
+def batchnorm_counters():
+    """The fused BatchNorm's launch counters by mode, named as its rows."""
+    return {f"batchnorm_act.{m}": _BatchNormCounter(m)
+            for m in BATCHNORM_MODES}
+
+
+def _check_batchnorm_act(torch, gen):
+    """The fused BatchNorm kernels (``csrc/batchnorm_act.cu``) in bf16 at
+    each main-path shape: train forward, eval forward and backward, each
+    against its plain version run on the card (the plain chain's rounding
+    points: a train forward within one bf16 step an element, as its sums
+    run in another order; an eval forward ``==``; a backward within 2e-2
+    of its largest entry), then timed by graph replay beside its bound
+    (bytes read once and written once: 4 bytes an element forward, 6
+    backward), the plain version's time and the library's
+    (``F.batch_norm`` and ``relu``, which the port never calls).  Returns
+    one row a mode, its shapes inside."""
+    import torch.nn.functional as F
+    from sonet_torch.ops.cuda import batchnorm_act as bna
+    dev = torch.device("cuda")
+    rows = {m: {"name": f"batchnorm_act.{m}", "route": "cuda",
+                "source": "sonet_torch/csrc/batchnorm_act.cu",
+                "replaces": "none (sonet_tpu/nn/layers.py:52 BatchNorm is "
+                            "left to XLA's fusion on the TPU)",
+                "launches": None, "shapes": {}} for m in BATCHNORM_MODES}
+    ops = torch.ops.sonet_torch
+    for R, C in BATCHNORM_SHAPES:
+        y = (torch.randn((R, C), generator=gen, device=dev) * 2
+             + 0.3).bfloat16()
+        b = torch.randn(C, generator=gen, device=dev).bfloat16()
+        g = torch.randn((R, C), generator=gen, device=dev).bfloat16()
+        w = torch.rand(C, generator=gen, device=dev) + 0.5
+        beta = torch.rand(C, generator=gen, device=dev) - 0.5
+        rm = torch.randn(C, generator=gen, device=dev) * 0.1 + 0.3
+        rv = torch.rand(C, generator=gen, device=dev) + 3.0
+        out, mean, var = bna.batchnorm_act_train(y, b, w, beta, 1e-5, True)
+        want, want_mean, want_var = bna.batchnorm_act_train_plain(
+            y, b, w, beta, 1e-5, True)
+        train_err = float((out.float() - want.float()).abs().max())
+        stat_err = max(float((mean - want_mean).abs().max()),
+                       float((var - want_var).abs().max()))
+        one_step = bool(((out.float() - want.float()).abs()
+                         <= 2 ** -7 * want.float().abs() + 1e-4).all())
+        ev = bna.batchnorm_act_eval(y, b, w, beta, rm, rv, 1e-5, True)
+        ev_same = torch.equal(ev, bna.batchnorm_act_eval_plain(
+            y, b, w, beta, rm, rv, 1e-5, True))
+        back = ops.batchnorm_act_backward(g, y, b, w, beta, mean, var, 1e-5,
+                                          True, True, ["data"])
+        back_want = bna.batchnorm_act_backward_plain(
+            g, y, b, w, beta, mean, var, 1e-5, True, True)
+        back_err = max(float((a.float() - c.float()).abs().max())
+                       / float(c.float().abs().max())
+                       for a, c in zip(back, back_want))
+        torch.cuda.synchronize()
+        log(f"batchnorm_act at ({R}, {C}) bf16: train forward within "
+            f"{train_err:.3g} of the plain chain (one bf16 step an element: "
+            f"{one_step}), statistics within {stat_err:.3g}; eval forward "
+            f"== {ev_same}; backward within {back_err:.3g} of the largest")
+        if not (one_step and ev_same and back_err <= 2e-2
+                and stat_err <= 1e-5 * float(want_var.max())):
+            raise AssertionError(f"batchnorm_act at ({R}, {C}) differs from "
+                                 "its plain version")
+        el = R * C * 2
+        fns = {
+            "train": (lambda: bna.batchnorm_act_train(y, b, w, beta, 1e-5,
+                                                      True),
+                      lambda: bna.batchnorm_act_train_plain(
+                          y, b, w, beta, 1e-5, True), 2 * el),
+            "eval": (lambda: bna.batchnorm_act_eval(y, b, w, beta, rm, rv,
+                                                    1e-5, True),
+                     lambda: bna.batchnorm_act_eval_plain(
+                         y, b, w, beta, rm, rv, 1e-5, True), 2 * el),
+            "backward": (lambda: ops.batchnorm_act_backward(
+                g, y, b, w, beta, mean, var, 1e-5, True, True, ["data"]),
+                lambda: bna.batchnorm_act_backward_plain(
+                    g, y, b, w, beta, mean, var, 1e-5, True, True), 3 * el),
+        }
+        h = (y + b).requires_grad_()
+
+        def library(train):
+            return F.relu(F.batch_norm(h, None if train else rm,
+                                       None if train else rv, w, beta,
+                                       train, 0.0, 1e-5))
+        lib_fwd = {"train": time_ms(lambda: library(True), reps=20, inner=10),
+                   "eval": time_ms(lambda: library(False), reps=20, inner=10)}
+        lib_out = library(True)
+        lib_fwd["backward"] = time_ms(lambda: torch.autograd.grad(
+            lib_out, (h,), g, retain_graph=True), reps=20, inner=10)
+        for m, (kernel, plain, nbytes) in fns.items():
+            bound_ms, bound_by = _bound(nbytes, 0)
+            graph_ms = time_graph_ms(kernel, reps=20, inner=20)
+            plain_ms = time_graph_ms(plain, reps=20, inner=5)
+            rows[m]["shapes"][f"{R}x{C}"] = {
+                "graph_ms": graph_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "plain_graph_ms": plain_ms,
+                "library_ms": lib_fwd[m],
+                "max_abs_err": {"train": train_err, "eval": 0.0,
+                                "backward": back_err}[m]}
+            log(f"batchnorm_act.{m} at ({R}, {C}) bf16: {graph_ms:.4f} ms by "
+                f"graph replay, bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB"
+                f" at {HBM_BYTES_PER_S / 1e12} TB/s): {bound_ms / graph_ms:.1%}"
+                f"; plain {plain_ms:.4f} ms by graph; F.batch_norm + relu "
+                f"{lib_fwd[m]:.4f} ms by events")
+    return [rows[m] for m in BATCHNORM_MODES]
+
+
 def _fit_nodes(pc, cfg):
     """SOM nodes of the clouds ``pc`` (n, N, 3), fitted on the card with
     the schedule the published datasets were built with."""
@@ -1003,8 +1140,10 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
     warm-up captures the forward (kernel 1 launched by its warm-up step
     and its capture, at the main path's shape); every request replays
     the graph once a chunk of B, and the captured forward is held against
-    the eager ``build_serve_fn`` on the same inputs.  ``small`` is the
-    float32 configuration held against the CPU."""
+    the eager ``build_serve_fn`` on the same inputs.  Every BatchNorm the
+    forward runs takes the fused eval kernel once in the warm-up step and
+    once in the capture.  ``small`` is the float32 configuration held
+    against the CPU."""
     import numpy as np
     import torch
     from sonet_torch.models import build_model
@@ -1019,7 +1158,8 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
         f"pooling={engine.manifest['pooling']}")
     record, shapes = _kernel1_shapes()
     _reset(kernel_counters)
-    with record():
+    norms = []
+    with record(), _batchnorm_calls(norms):
         engine.warmup()
     clouds = _clouds(np, 13, cfg, seed=1)
     inputs = {n: clouds[n] for n in names}
@@ -1035,6 +1175,8 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
             or any(warm[n] != 2 for n in on_path)):
         raise AssertionError(f"the warm-up did not capture kernel 1 in the "
                              f"forward at {want_shape}: {shapes}, {warm}")
+    _check_batchnorm_calls(norms, warm, 2, _served_norms(model, cfg),
+                           "serving warm-up")
 
     outputs = {}
     replays = 0
@@ -1196,13 +1338,16 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
     ``train.make_steps``, and write the state as a checkpoint under
     ``ckpt_dir``.  Returns the launches of every kernel during the
     TRAIN_STEPS steps, the train state, and the checkpoint's path.  Each
-    kernel named in ``on_path`` must launch once per step.  ``small`` is
-    the float32 configuration whose train step is held against the CPU."""
+    kernel named in ``on_path`` must launch once per step, and every
+    BatchNorm takes the fused kernels once a step forward and, where it
+    runs with a gradient, once backward.  ``small`` is the float32
+    configuration whose train step is held against the CPU."""
     import numpy as np
     import torch
     from sonet_torch import train
     from sonet_torch.models import build_model
     from sonet_torch.nn.encoder import resolve_pooling
+    from sonet_torch.nn.layers import BatchNorm
 
     dev = torch.device("cuda")
     B, spe = cfg.batch_size, 100
@@ -1234,9 +1379,10 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
 
     gen = torch.Generator(device=dev).manual_seed(7)
     _reset(kernel_counters)
-    losses = []
+    losses, norms = [], []
     for i in range(TRAIN_STEPS):
-        state, metrics = train_step(state, batches[i % 3], gen)
+        with _batchnorm_calls(norms):
+            state, metrics = train_step(state, batches[i % 3], gen)
         losses.append(float(metrics["loss"]))
         no_grad = [n for n, p in model.named_parameters()
                    if (p.grad is None) != (n in stopped)]
@@ -1262,6 +1408,10 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
         if launches[n] != TRAIN_STEPS:
             raise AssertionError(f"{n} launched {launches[n]} times in "
                                  f"{TRAIN_STEPS} train steps, want one a step")
+    _check_batchnorm_calls(norms, launches, TRAIN_STEPS,
+                           [n for n, m in model.named_modules()
+                            if isinstance(m, BatchNorm)],
+                           f"{TRAIN_STEPS} train steps", model)
     params = dict(model.named_parameters())
     unmoved = [n for n in params if n not in stopped
                and torch.equal(params[n].detach(), before[n])]
@@ -2495,27 +2645,137 @@ def phase_serve_http(kernel_counters, on_path, run):
 
 
 class _GraphCounter:
-    """Counts CUDA graph captures and replays, wherever they happen."""
+    """Counts CUDA graph captures and replays, wherever they happen, and,
+    by kernel counter (``_mesh_counters``), the replays of the graphs whose
+    capture launched that kernel (``ran``): what a kernel's row reports
+    as its graph replays.  A graph keeps what its capture launched, so a
+    replay counts in whatever counter is open when it runs."""
 
     def __enter__(self):
         import torch
         self.cls = torch.cuda.CUDAGraph
-        self.real = self.cls.capture_begin, self.cls.replay
+        self.real = (self.cls.capture_begin, self.cls.capture_end,
+                     self.cls.replay)
         self.captures = self.replays = 0
-        begin, replay = self.real
+        counters = _mesh_counters()
+        self.ran = dict.fromkeys(counters, 0)
+        begin, end, replay = self.real
 
         def counted_begin(graph, *a, **k):
             self.captures += 1
+            graph.smoke_launches = _launch_counts(counters)
             return begin(graph, *a, **k)
 
-        def counted_replay(graph):
+        def counted_end(graph, *a, **k):
+            out = end(graph, *a, **k)
+            now = _launch_counts(counters)
+            graph.smoke_holds = [n for n, c in now.items()
+                                 if c > graph.smoke_launches[n]]
+            return out
+
+        def counted_replay(graph, *a, **k):
             self.replays += 1
-            return replay(graph)
-        self.cls.capture_begin, self.cls.replay = counted_begin, counted_replay
+            for n in getattr(graph, "smoke_holds", ()):
+                self.ran[n] += 1
+            return replay(graph, *a, **k)
+        self.cls.capture_begin = counted_begin
+        self.cls.capture_end = counted_end
+        self.cls.replay = counted_replay
         return self
 
     def __exit__(self, *exc):
-        self.cls.capture_begin, self.cls.replay = self.real
+        (self.cls.capture_begin, self.cls.capture_end,
+         self.cls.replay) = self.real
+
+
+def _batchnorm_calls(calls):
+    """A context that records each BatchNorm call that takes the fused
+    kernels (``BatchNorm._fused``) into ``calls`` as (module, training,
+    gradient enabled)."""
+    import contextlib
+
+    import torch
+    from sonet_torch.nn import layers
+
+    @contextlib.contextmanager
+    def ctx():
+        real = layers.BatchNorm._fused
+
+        def recording(self, *a):
+            calls.append((self, self.training, torch.is_grad_enabled()))
+            return real(self, *a)
+        layers.BatchNorm._fused = recording
+        try:
+            yield
+        finally:
+            layers.BatchNorm._fused = real
+    return ctx()
+
+
+def _plain_batchnorm_calls(calls):
+    """A context that records into ``calls`` the shape of each CUDA tensor
+    that a BatchNorm runs through its plain chain (``BatchNorm.forward``):
+    on the card there should be none."""
+    import contextlib
+
+    from sonet_torch.nn import layers
+
+    @contextlib.contextmanager
+    def ctx():
+        real = layers.BatchNorm.forward
+
+        def watched(self, x, *a, **k):
+            if x.is_cuda:
+                calls.append(tuple(x.shape))
+            return real(self, x, *a, **k)
+        layers.BatchNorm.forward = watched
+        try:
+            yield
+        finally:
+            layers.BatchNorm.forward = real
+    return ctx()
+
+
+def _served_norms(model, cfg):
+    """The names of the BatchNorms that ``model``'s eval forward runs: all
+    of them but the autoencoder's 64x64 decoder stage where nothing reads
+    it (``nn/decoder.py``)."""
+    from sonet_torch.nn.layers import BatchNorm
+    unread = cfg.task == "autoencode" and cfg.output_conv_pc_num != 4096
+    return [n for n, m in model.named_modules() if isinstance(m, BatchNorm)
+            and not (unread and n.startswith(UNREAD_STAGE))]
+
+
+def _check_batchnorm_calls(calls, launches, times, want, what, model=None):
+    """Holds what ``_batchnorm_calls`` recorded (``calls``) against the
+    fused BatchNorm's launches counted over the same work: each of the
+    ``want`` BatchNorms (by name) took the kernels ``times`` times, all in
+    train mode or all in eval mode, and each mode's counter grew by one a
+    call (backward: a train call with a gradient).  ``model`` names the
+    recorded modules; without it (a served snapshot of the model) they
+    are held by count."""
+    names = ({id(m): n for n, m in model.named_modules()}
+             if model is not None else {})
+    by = {}
+    for m, _, _ in calls:
+        key = names.get(id(m), id(m))
+        by[key] = by.get(key, 0) + 1
+    train = sum(t for _, t, _ in calls)
+    grad = sum(t and g for _, t, g in calls)
+    modes = {"batchnorm_act.train": train,
+             "batchnorm_act.eval": len(calls) - train,
+             "batchnorm_act.backward": grad}
+    got = {n: launches[n] for n in modes}
+    log(f"{what}: {len(by)} BatchNorms took the fused kernels, "
+        f"{len(calls)} calls ({train} in train mode, {grad} of them with a "
+        f"gradient); launches {got}")
+    same = (sorted(by) == sorted(want) if model is not None
+            else len(by) == len(want))
+    if (not same or set(by.values()) != {times}
+            or train not in (0, len(calls)) or got != modes):
+        raise AssertionError(f"{what}: want each of {len(want)} BatchNorms "
+                             f"{times} times through the fused kernels, one "
+                             f"launch a call: calls {by}, launches {got}")
 
 
 def _kernel1_key(args):
@@ -3793,11 +4053,12 @@ def _sharded_pooling_check(mesh, dev):
 
 
 def _mesh_counters():
-    """Both kernels' launch counters, by name, as the ranks read them."""
+    """Every kernel's launch counter by its row's name: kernels 1 and 2,
+    and the fused BatchNorm by mode."""
     from sonet_torch.ops.cuda.segment_argmax import segment_argmax
     from sonet_torch.ops.cuda.segment_max_window import windowed_vals
     return {"segment_max_window": windowed_vals,
-            "segment_argmax": segment_argmax}
+            "segment_argmax": segment_argmax, **batchnorm_counters()}
 
 
 def _planted_sync_grads(model, mesh):
@@ -4000,7 +4261,7 @@ def mesh_steps_worker(out_dir):
                         coll.append((spent["s"] - c0) * 1e3)
                 res[key] = {
                     "launches": _launch_counts(counters),
-                    "replays": graphs.replays,
+                    "replays": graphs.replays, "ran": graphs.ran,
                     "shapes": {str(list(k)): n for k, n in shapes.items()},
                     "losses": losses}
                 del st
@@ -4089,6 +4350,7 @@ def mesh_nccl_worker(out_dir):
     res = {"backend": backend, "equal": same,
            "eager": [g.eager for g in graphs],
            "captures": counted.captures, "replays": counted.replays,
+           "ran": counted.ran,
            "launches": _launch_counts(counters)}
     with open(os.path.join(out_dir, "nccl.0.json"), "w") as f:
         json.dump(res, f)
@@ -4120,7 +4382,7 @@ def rank_cli(out_base):
     rank = int(os.environ["RANK"])
     with open(f"{out_base}.{rank}.json", "w") as f:
         json.dump({"rc": rc, "launches": _launch_counts(counters),
-                   "replays": graphs.replays,
+                   "replays": graphs.replays, "ran": graphs.ran,
                    "shapes": {str(list(k)): n for k, n in shapes.items()}},
                   f)
     return rc
@@ -4159,8 +4421,8 @@ def _check_kernel1(what, results, want):
 def phase_mesh_steps(runs, card):
     """Phases "mesh", "mesh_segment" and "mesh_autoencode": two ranks on
     the one card, ``MESH_DEVICE``, over gloo, launched with torchrun.
-    Returns ({path: {kernel: launches over its ranks}}, {path: graph
-    replays over its ranks})."""
+    Returns ({path: {kernel: launches over its ranks}}, {path: {kernel:
+    graph replays that ran it over its ranks}})."""
     me = os.path.abspath(__file__)
     out = os.path.join(runs, "mesh")
     os.makedirs(out, exist_ok=True)
@@ -4176,7 +4438,7 @@ def check_mesh_steps(res, card, took):
     """Hold what the ranks of ``mesh_steps_worker`` wrote (``res``, by
     rank); returns what ``phase_mesh_steps`` returns."""
     from sonet_torch import config
-    launches, replays = {}, {}
+    launches, ran = {}, {}
     pooling = [r["pooling"] for r in res]
     log(f"kernel 1 under the (1, 2) mesh at (8, 7500, 384) a rank on {card}: "
         f"the kernel and the all-reduce MAX equal to the plain version and "
@@ -4187,8 +4449,8 @@ def check_mesh_steps(res, card, took):
     for phase, task_cfg in (("mesh", config.modelnet40()),
                             ("mesh_segment", config.shapenetpart()),
                             ("mesh_autoencode", config.autoencoder())):
-        launches[phase] = {"segment_max_window": 0, "segment_argmax": 0}
-        replays[phase] = 0
+        launches[phase] = dict.fromkeys(_mesh_counters(), 0)
+        ran[phase] = dict.fromkeys(_mesh_counters(), 0)
         bf16 = task_cfg.compute_dtype
         for key in [k for k in res[0] if k.startswith(phase + " (")]:
             shape = tuple(int(x) for x in key.split("(")[1].split(")")[0]
@@ -4201,8 +4463,15 @@ def check_mesh_steps(res, card, took):
                 got = rr[key]
                 for name, n in got["launches"].items():
                     launches[phase][name] += n
-                replays[phase] += got["replays"]
+                for name, n in got["ran"].items():
+                    ran[phase][name] += n
                 n1 = got["launches"]["segment_max_window"]
+                bn = [got["launches"][f"batchnorm_act.{m}"]
+                      for m in BATCHNORM_MODES]
+                if not bn[0] >= bn[2] > 0:
+                    raise AssertionError(f"{key}, rank {r}: the fused "
+                                         f"BatchNorm's launches (train, "
+                                         f"eval, backward) {bn}")
                 if n1 != want_n or len(got["shapes"]) != 1:
                     raise AssertionError(f"{key}, rank {r}: kernel 1 {n1} "
                                          f"launches at {got['shapes']}")
@@ -4250,7 +4519,7 @@ def check_mesh_steps(res, card, took):
                                      f"falling: {losses}")
         log(f"phase {phase} on {card}: {res[0][phase + ' s']:.1f} s in "
             f"the ranks ({took:.1f} s for the launch of all three)")
-    return launches, replays
+    return launches, ran
 
 
 def start_mesh_nccl(runs):
@@ -4266,7 +4535,8 @@ def start_mesh_nccl(runs):
 def finish_mesh_nccl(p, runs, card):
     """Check the NCCL world of one: its captured step over the (1, 1)
     mesh, gradients and metrics all-reduced inside the graph, `==` the
-    captured step over no mesh.  Returns (launches, replays)."""
+    captured step over no mesh.  Returns (launches, {kernel: graph
+    replays that ran it})."""
     out = os.path.join(runs, "mesh")
     rc = p.wait(timeout=300)
     nccl = _rank_results(out, "nccl", 1)[0] if rc == 0 else None
@@ -4280,7 +4550,7 @@ def finish_mesh_nccl(p, runs, card):
             log(f.read()[-6000:])
         raise AssertionError("the NCCL world of one: want its captured step "
                              "== the captured step over no mesh")
-    return nccl["launches"], nccl["replays"]
+    return nccl["launches"], nccl["ran"]
 
 
 def _infer_rows(out, name):
@@ -4328,8 +4598,8 @@ def phase_mesh_trainer(runs, card):
     SIGTERM to rank 1 and the run restored in one process, beside it the
     device pipeline with the train split sharded; then ``sonet-torch infer
     --mesh_shape 2`` against one process, the two side by side (no time
-    of these launches is read).  Returns (kernel 1's launches over the
-    ranks, graph replays)."""
+    of these launches is read).  Returns (every kernel's launches over
+    the ranks, {kernel: graph replays that ran it over the ranks})."""
     import torch
     from sonet_torch.config import load_config
     from sonet_torch.train.trainer import Trainer
@@ -4445,7 +4715,7 @@ def phase_mesh_trainer(runs, card):
     ranks = host + dev_res + inf
     return ({n: sum(x["launches"][n] for x in ranks)
              for n in ranks[0]["launches"]},
-            sum(x["replays"] for x in ranks))
+            {n: sum(x["ran"][n] for x in ranks) for n in ranks[0]["ran"]})
 
 
 def main(argv=None) -> int:
@@ -4474,8 +4744,6 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the sonet_torch package is missing beside this "
               f"script: {e}", file=sys.stderr)
         return 1
-    from sonet_torch.ops.cuda.segment_argmax import segment_argmax
-    from sonet_torch.ops.cuda.segment_max_window import windowed_vals
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4485,8 +4753,7 @@ def main(argv=None) -> int:
     card = phase_device()
     phase_build()
     kernels = phase_kernels()
-    counters = {"segment_max_window": windowed_vals,
-                "segment_argmax": segment_argmax}
+    counters = _mesh_counters()
     on_path = ("segment_max_window",)       # kernel 2 is on no path
     from sonet_torch import config
     classify, segment = config.modelnet40(), config.shapenetpart()
@@ -4495,9 +4762,9 @@ def main(argv=None) -> int:
     small_seg = small.replace(task="segment", classes=segment.classes)
     small_ae = small.replace(task="autoencode")
     # every path's kernel launches (eager launches, and in a captured path
-    # the warm-up step's and the capture's) and its graph replays, each of
-    # which runs kernel 1 without a launch from the host
-    by_path, replays = {}, {}
+    # the warm-up step's and the capture's) and, by kernel, the graph
+    # replays that ran it (counted around the path, or in its ranks)
+    by_path, ran = {}, {}
     record, shapes = _kernel1_shapes()
 
     def timed(name, phase):
@@ -4506,39 +4773,50 @@ def main(argv=None) -> int:
         log(f"phase {name}: {time.perf_counter() - t1:.1f} s")
         return out
 
+    def path(name, phase):
+        """Runs ``phase``, the path ``name``, which returns its launches
+        first; keeps them and the path's replays by kernel, and holds
+        that no BatchNorm ran its plain chain on the card."""
+        plain = []
+        with _GraphCounter() as graphs, _plain_batchnorm_calls(plain):
+            out = timed(name, phase)
+        if plain:
+            raise AssertionError(f"path {name}: BatchNorm ran its plain "
+                                 f"chain on the card at {plain}")
+        by_path[name], ran[name] = out[0], graphs.ran
+        return out
+
     with tempfile.TemporaryDirectory() as runs, record():
-        by_path["serve"], replays["serve"] = phase_serve(
-            classify, small, counters, on_path, args.profile)
-        by_path["train"], _, classifier_ckpt = phase_train(
+        path("serve", lambda: phase_serve(classify, small, counters,
+                                          on_path, args.profile))
+        _, _, classifier_ckpt = path("train", lambda: phase_train(
             classify, small.replace(dropout=0.0), counters, on_path,
-            os.path.join(runs, "classify", "ckpt"), args.profile)
-        by_path["serve_segment"], replays["serve_segment"] = phase_serve(
-            segment, small_seg, counters, on_path, args.profile)
+            os.path.join(runs, "classify", "ckpt"), args.profile))
+        path("serve_segment", lambda: phase_serve(
+            segment, small_seg, counters, on_path, args.profile))
         seg_run = os.path.join(runs, "segment")
-        by_path["train_segment"], seg_state, seg_ckpt = phase_train(
+        _, seg_state, seg_ckpt = path("train_segment", lambda: phase_train(
             segment, small_seg.replace(dropout=0.0), counters, on_path,
-            os.path.join(seg_run, "ckpt"), args.profile)
+            os.path.join(seg_run, "ckpt"), args.profile))
         phase_round_trip(segment, seg_state, seg_run, seg_ckpt,
                          classifier_ckpt)
         phase_som(args.profile)
-        by_path["serve_autoencode"], replays["serve_autoencode"] = (
-            phase_serve(autoenc, small_ae, counters, on_path, args.profile))
+        path("serve_autoencode", lambda: phase_serve(
+            autoenc, small_ae, counters, on_path, args.profile))
         ae_run = os.path.join(runs, "autoencode")
-        by_path["train_autoencode"], ae_state, ae_ckpt = phase_train(
+        _, ae_state, ae_ckpt = path("train_autoencode", lambda: phase_train(
             autoenc, small_ae.replace(dropout=0.0), counters, on_path,
-            os.path.join(ae_run, "ckpt"), args.profile)
+            os.path.join(ae_run, "ckpt"), args.profile))
         phase_round_trip(autoenc, ae_state, ae_run, ae_ckpt, classifier_ckpt)
         for name, phase in (("trainer", phase_trainer),
                             ("retrieve", phase_retrieve)):
-            by_path[name], replays[name] = timed(
-                name, lambda: phase(counters, on_path, runs))
-        by_path["reproduce"], replays["reproduce"], run = timed(
-            "reproduce", lambda: phase_reproduce(counters, on_path, runs))
+            path(name, lambda: phase(counters, on_path, runs))
+        _, _, run = path("reproduce",
+                         lambda: phase_reproduce(counters, on_path, runs))
         for name, phase in (("trainer_device", phase_trainer_device),
                             ("trainer_chunked", phase_trainer_chunked),
                             ("trainer_native", phase_trainer_native)):
-            by_path[name], replays[name] = timed(
-                name, lambda: phase(counters, on_path, runs))
+            path(name, lambda: phase(counters, on_path, runs))
         for name, phase in (
                 ("infer", lambda: phase_infer(counters, on_path, run, card,
                                               runs)),
@@ -4546,39 +4824,35 @@ def main(argv=None) -> int:
                 ("serve_http", lambda: phase_serve_http(counters, on_path,
                                                         run)),
                 ("export", lambda: phase_export(counters, on_path, run,
-                                                runs))):
-            by_path[name], replays[name] = timed(name, phase)
-        by_path["import_ckpt"], replays["import_ckpt"] = timed(
-            "import_ckpt",
-            lambda: phase_import_ckpt(counters, on_path, run, runs))
-        by_path["train_remat"], replays["train_remat"] = timed(
-            "train_remat", lambda: phase_train_remat(counters, on_path))
-        by_path["profile"], replays["profile"] = timed(
-            "profile",
-            lambda: phase_profile(counters, on_path, kernels, args.profile))
+                                                runs)),
+                ("import_ckpt", lambda: phase_import_ckpt(counters, on_path,
+                                                          run, runs)),
+                ("train_remat", lambda: phase_train_remat(counters,
+                                                          on_path)),
+                ("profile", lambda: phase_profile(counters, on_path, kernels,
+                                                  args.profile))):
+            path(name, phase)
         timed("monitor", lambda: phase_monitor(runs))
-        by_path["quality"], replays["quality"] = timed(
-            "quality", lambda: phase_quality(counters, on_path, runs))
-        # ranks launched with torchrun: their launches counted in the ranks
-        mesh_launches, mesh_replays = timed(
+        path("quality", lambda: phase_quality(counters, on_path, runs))
+        # ranks launched with torchrun: their launches and replays counted
+        # in the ranks
+        mesh_launches, mesh_ran = timed(
             "mesh, mesh_segment, mesh_autoencode",
             lambda: phase_mesh_steps(runs, card))
         nccl = start_mesh_nccl(runs)
-        mesh_launches["mesh_trainer"], mesh_replays["mesh_trainer"] = timed(
+        mesh_launches["mesh_trainer"], mesh_ran["mesh_trainer"] = timed(
             "mesh_trainer", lambda: phase_mesh_trainer(runs, card))
-        mesh_launches["mesh_nccl"], mesh_replays["mesh_nccl"] = (
+        mesh_launches["mesh_nccl"], mesh_ran["mesh_nccl"] = (
             finish_mesh_nccl(nccl, runs, card))
         by_path.update(mesh_launches)
-        replays.update(mesh_replays)
+        ran.update(mesh_ran)
     # every shape kernel 1 was called at after phase 3, checks at small
     # widths included, for the rule-2 watch of phase 3's readings
     log(f"kernel 1 calls by (B, N, C, M) over the paths: {shapes}")
     for k in kernels:
         k["launches_by_path"] = {p: n[k["name"]] for p, n in by_path.items()}
         k["launches"] = sum(k["launches_by_path"].values())
-        k["graph_replays_by_path"] = {
-            p: (replays.get(p, 0) if k["name"] in on_path else 0)
-            for p in by_path}
+        k["graph_replays_by_path"] = {p: ran[p][k["name"]] for p in by_path}
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

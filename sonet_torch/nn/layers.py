@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import batchnorm_act
 from ..ops.gather import knn_gather
 from ..parallel import collectives
 
@@ -59,6 +60,12 @@ def recomputation():
 def recomputing() -> bool:
     """Whether this thread runs inside ``recomputation()``."""
     return getattr(_RECOMPUTE, "on", False)
+
+
+def fused(x: torch.Tensor) -> bool:
+    """Whether ``BatchNorm`` runs ``x`` through the fused CUDA kernels:
+    every CUDA tensor (the kernels raise on what they do not take)."""
+    return x.is_cuda
 
 
 def activation_fn(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -119,13 +126,19 @@ class Dense(nn.Module):
         b = self.bias.detach() if self.stop_bias_grad else self.bias
         return self.weight.to(dtype), b.to(dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def product(self, x: torch.Tensor):
+        """(x @ kernel, bias), both in the compute dtype: the output before
+        its bias add, for a BatchNorm that adds the bias itself."""
         # without a compute dtype the operands promote, as in the JAX
         # package (a bf16 input to a float32 layer runs in float32)
         dt = self.compute_dtype or torch.promote_types(x.dtype,
                                                        self.weight.dtype)
         w, b = self._params(dt)
-        return F.linear(x.to(dt), w) + b
+        return F.linear(x.to(dt), w), b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, b = self.product(x)
+        return y + b
 
 
 class ConcatDense(Dense):
@@ -147,7 +160,8 @@ class ConcatDense(Dense):
                          stop_bias_grad)
         self.splits = tuple(in_features)
 
-    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+    def product(self, *xs: torch.Tensor):
+        """(the sum of the sliced products, bias), as ``Dense.product``."""
         dt = self.compute_dtype or torch.float32
         w, b = self._params(dt)
         out_rank = max(x.dim() for x in xs)
@@ -159,6 +173,10 @@ class ConcatDense(Dense):
                 part = part.unsqueeze(1)
             y = part if y is None else y + part
             off += c
+        return y, b
+
+    def forward(self, *xs: torch.Tensor) -> torch.Tensor:
+        y, b = self.product(*xs)
         return y + b
 
 
@@ -180,7 +198,18 @@ class BatchNorm(nn.Module):
     each rank's points (``sharded_points``), over ``points`` too; the row
     count ``n`` (and with it the two-pass / one-pass choice) is the
     global one.  Two-pass takes a second all-reduce.  Every rank then
-    updates its running statistics with the same values."""
+    updates its running statistics with the same values.
+
+    The layers call ``normalise(y, epoch, bias, activation)``: this
+    module on ``y + bias`` (a dense layer's product and its bias; ``y``
+    alone without one), then the named activation.  On a CUDA tensor
+    that whole chain runs as the fused kernels of ``ops.cuda.batchnorm_act``
+    (the ReLU inside them; another activation after them), with the same
+    rounding points: the bias add rounded to ``y``'s type, statistics and
+    normalisation in float32, the output rounded to ``y``'s type.  The
+    kernels take float32 or bf16 of a width that is a multiple of 8 and
+    raise on anything else; there is no second path on the card.  On the
+    CPU it runs as ``forward`` and the activation."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1,
@@ -237,6 +266,31 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         return (y * self.weight + self.bias).to(x.dtype)
+
+    def normalise(self, y: torch.Tensor, epoch: Optional[int] = None,
+                  bias: Optional[torch.Tensor] = None,
+                  activation: Optional[str] = None) -> torch.Tensor:
+        """The named activation of this BatchNorm of ``y + bias``."""
+        if fused(y):
+            return self._fused(y, epoch, bias, activation)
+        return activation_fn(activation)(
+            self(y if bias is None else y + bias, epoch))
+
+    def _fused(self, x, epoch, bias, activation):
+        relu = activation == "relu"
+        if self.training:
+            mesh_axes = ("data", "points") if self.sharded_points else ("data",)
+            out, mean, var = batchnorm_act.batchnorm_act_train(
+                x, bias, self.weight, self.bias, self.eps, relu, mesh_axes)
+            if not recomputing():
+                n = x.numel() // x.shape[-1] * math.prod(
+                    collectives.axis_size(a) for a in mesh_axes)
+                self._update_running(mean, var, n, epoch)
+        else:
+            out = batchnorm_act.batchnorm_act_eval(
+                x, bias, self.weight, self.bias, self.running_mean,
+                self.running_var, self.eps, relu)
+        return out if relu else activation_fn(activation)(out)
 
     @torch.no_grad()
     def _update_running(self, mean, var, n, epoch):
@@ -307,14 +361,17 @@ class PointLayer(nn.Module):
         self.InstanceNorm_0 = (InstanceNorm(features)
                                if normalization == "instance" else None)
         self.compute_dtype = compute_dtype
+        self.activation = activation
         self.act = activation_fn(activation)
 
     def forward(self, *xs: torch.Tensor,
                 epoch: Optional[int] = None) -> torch.Tensor:
-        x = self.Dense_0(*xs)
         if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x, epoch)
-        elif self.InstanceNorm_0 is not None:
+            # the bias (detached: stop_bias_grad) is added inside BatchNorm
+            y, b = self.Dense_0.product(*xs)
+            return self.BatchNorm_0.normalise(y, epoch, b, self.activation)
+        x = self.Dense_0(*xs)
+        if self.InstanceNorm_0 is not None:
             x = self.InstanceNorm_0(x)
         return self.act(x)
 
@@ -470,6 +527,7 @@ class UpConv(nn.Module):
                                       momentum_decay_step=bn_momentum_decay_step,
                                       momentum_decay=bn_momentum_decay)
                             if normalization == "batch" else None)
+        self.activation = activation
         self.act = activation_fn(activation)
 
     def forward(self, x: torch.Tensor,
@@ -482,5 +540,7 @@ class UpConv(nn.Module):
             B, 2 * H, 2 * W, C)                       # nearest 2x, one copy
         x = self.Conv_0(x)
         if self.BatchNorm_0 is not None:
-            x = self.BatchNorm_0(x, epoch)
+            # the convolution's bias has a gradient: it is added before
+            return self.BatchNorm_0.normalise(x, epoch,
+                                              activation=self.activation)
         return self.act(x)

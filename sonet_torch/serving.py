@@ -58,12 +58,14 @@ without a card.  A program runs where its weights lie; ``load_exported``
 moves one stored on another device type onto its device
 (``torch.export.passes.move_to_device_pass``), and a process using
 ``torch`` alone does the same.  A ``cuda``-only export keeps the windowed
-segment-max kernel as the operator ``sonet_torch::windowed_vals``; unlike
-the JAX artifact, which embeds its Mosaic kernel, such a program names an
-operator that must be registered before it loads, so ``load_exported``
-imports ``sonet_torch.ops.cuda.segment_max_window`` (the operator alone,
-no model code) when the manifest's ``requires`` lists it, and the kernel
-is built from the package's source at first use.
+segment-max kernel as the operator ``sonet_torch::windowed_vals`` and,
+traced on a card, each BatchNorm as ``sonet_torch::batchnorm_act_eval``
+(the fused kernels); unlike the JAX artifact, which embeds its Mosaic
+kernel, such a program names operators that must be registered before it
+loads, so ``load_exported`` imports the modules the manifest's
+``requires`` lists (``sonet_torch.ops.cuda.segment_max_window``,
+``sonet_torch.ops.cuda.batchnorm_act``: the operators alone, no model
+code), and the kernels are built from the package's source at first use.
 
 ``export_run(..., poly_batch=True)`` writes an any-batch-size artifact
 (manifest shapes carry ``None``), in one of two forms:
@@ -112,6 +114,11 @@ from .train.graphs import StepGraph, eager_by_rule
 ARTIFACT_BLOB = "model.pt2"
 ARTIFACT_MANIFEST = "manifest.json"
 KERNEL_OP_MODULE = "sonet_torch.ops.cuda.segment_max_window"
+BATCHNORM_OP_MODULE = "sonet_torch.ops.cuda.batchnorm_act"
+# the module that registers each of the package's operators a program
+# may hold, in the order a manifest lists them
+_OP_MODULES = {"windowed_vals": KERNEL_OP_MODULE,
+               "batchnorm_act_eval": BATCHNORM_OP_MODULE}
 # the micro-batcher fills a symbolic artifact's dispatch toward this size
 _SYMBOLIC_FILL = 8
 
@@ -294,10 +301,15 @@ def export_run(run_dir: str, out_dir: Optional[str] = None,
         return tuple(torch.zeros((b,) + tuple(s[1:]), dtype=getattr(torch, d),
                                  device=dev) for _, s, d in sig)
 
+    held = set()
+
     def save(fname, inputs, dynamic_shapes=None) -> int:
         with torch.no_grad():
             program = torch.export.export(module, inputs,
                                           dynamic_shapes=dynamic_shapes)
+        held.update(str(n.target).split(".")[1] for n in program.graph.nodes
+                    if n.op == "call_function"
+                    and str(n.target).startswith("sonet_torch."))
         path = os.path.join(out_dir, fname)
         torch.export.save(program, path)
         return os.path.getsize(path)
@@ -329,8 +341,7 @@ def export_run(run_dir: str, out_dir: Optional[str] = None,
         "output": _OUTPUT_DOC[cfg.task],
         "platforms": platforms,
         "pooling": pooling,
-        "requires": ([KERNEL_OP_MODULE] if pooling == "sorted_window"
-                     else []),
+        "requires": [m for op, m in _OP_MODULES.items() if op in held],
         "classes": cfg.classes,
         "checkpoint": ckpt,
         "torch_version": torch.__version__,

@@ -52,6 +52,7 @@ and a capture asked for under gloo raises by name
 
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Hashable, Optional, Sequence
 
 import numpy as np
@@ -118,9 +119,18 @@ def _capture(body: Callable[[], Any], generators: Sequence[torch.Generator],
         if g.device.type == "cuda":
             graph.register_generator_state(g)
     # thread_local: a loader or chunk-staging thread may pin memory and
-    # copy on its own stream meanwhile
-    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
-        captured = body()
+    # copy on its own stream meanwhile.  No cyclic garbage collection while
+    # capturing: it could run the destructor of some dead object holding
+    # pinned memory or a graph, whose CUDA calls a capture does not permit
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            captured = body()
+    finally:
+        if collecting:
+            gc.enable()
     restore()
     return graph, captured
 

@@ -17,6 +17,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the edge cases it holds the kernel to)
 from sonet_torch import config, train
 from sonet_torch.models import build_model
+from sonet_torch.nn import layers as nn_layers
+from sonet_torch.ops.cuda import batchnorm_act as bna
 from sonet_torch.ops.cuda import segment_argmax as sam
 from sonet_torch.ops.cuda import segment_max_window as smw
 
@@ -1010,3 +1012,216 @@ def test_scan_bench_replays_a_graph(cuda_device):
                      dim=1).values
     ms = scan_bench(smw.windowed_vals, (data, ids, 64), iters=10, reps=5)
     assert 0 < ms < 1.0
+
+
+# ---------------------------------------------------------------------------
+# the fused BatchNorm kernels (csrc/batchnorm_act.cu)
+# ---------------------------------------------------------------------------
+
+# the main path's (rows, width): the first PointNet's three layers over
+# 8 x 15,000 stacked points, the segmenter head's first layer over 24,576,
+# the kNN layer's 4,608 (two-pass variance) and a head's rank-2 rows
+BN_SHAPES = [(120000, 64), (120000, 128), (120000, 256), (24576, 1024),
+             (4608, 512), (8, 512)]
+
+
+def _bn_inputs(rows, width, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    y = (torch.randn((rows, width), generator=gen, device=device) * 2
+         + 0.3).to(dtype)
+    b = torch.randn(width, generator=gen, device=device).to(dtype)
+    g = torch.randn((rows, width), generator=gen, device=device).to(dtype)
+    bn = nn_layers.BatchNorm(width).to(device)
+    with torch.no_grad():
+        bn.weight.uniform_(0.5, 1.5, generator=gen)
+        bn.bias.uniform_(-0.5, 0.5, generator=gen)
+        bn.running_mean.normal_(0.3, 0.1, generator=gen)
+        bn.running_var.uniform_(3.0, 5.0, generator=gen)
+    return y, b, g, bn
+
+
+def _bn_run(bn, y, b, g, act):
+    x = y.clone().requires_grad_()
+    out = bn.normalise(x, None, b, act)
+    out.backward(g)
+    return out.detach(), x.grad, bn.weight.grad, bn.bias.grad
+
+
+def _rel_err(got, want):
+    """Largest difference over the largest entry of ``want``."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("act", ["relu", None])
+@pytest.mark.parametrize("train_mode", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,width", BN_SHAPES)
+def test_batchnorm_kernels_equal_the_plain_chain(cuda_device, monkeypatch,
+                                                 rows, width, dtype,
+                                                 train_mode, act):
+    """The fused kernels against ``BatchNorm``'s unfused chain run on the
+    card, its gradients by autograd.
+
+    With the running statistics the forward is ``==`` (the same float32
+    operations, each rounded once, in the same order) and the gradients
+    agree within 1e-4 of the largest entry in float32 (the closed form of
+    autograd's chain, rounded elsewhere; 120,000-term sums in another
+    order) and 2e-2 in bf16 (one bf16 step of dy, 0.4-0.8%).
+
+    With batch statistics the sums run in another order: mean and
+    variance within 1e-5 of the variance's scale, the forward within one
+    step of its type where a last-bit change of the statistics moves it.
+    The backward kernels then equal, at the same tolerances, the plain
+    backward from the kernels' own statistics; against autograd of the
+    plain chain, whose statistics differ in their last bits, a ReLU mask
+    flips wherever a pre-activation lies within those bits of 0, moving
+    that element's dy by up to the largest entry and a channel's sums by
+    one term: at most 1e-5 of dy's elements may differ beyond the
+    tolerance, and the parameters' gradients agree in norm within
+    1e-2."""
+    y, b, g, bn = _bn_inputs(rows, width, dtype, cuda_device)
+    plain = nn_layers.BatchNorm(width).to(cuda_device)
+    plain.load_state_dict(bn.state_dict())
+    bn.train(train_mode)
+    plain.train(train_mode)
+    relu = act == "relu"
+    before = dict(bna.launches)
+    got = _bn_run(bn, y, b, g, act)
+    mode = "train" if train_mode else "eval"
+    assert bna.launches[mode] == before[mode] + 1
+    assert bna.launches["backward"] == before["backward"] + 1
+    monkeypatch.setattr(nn_layers, "fused", lambda t: False)
+    want = _bn_run(plain, y, b, g, act)
+    torch.cuda.synchronize()
+    f32 = dtype == torch.float32
+    tol = 1e-4 if f32 else 2e-2
+    names = ("dy", "dweight", "dbias")
+    if not train_mode:
+        assert torch.equal(got[0], want[0])
+        for name, a, w in zip(names, got[1:], want[1:]):
+            assert _rel_err(a, w) <= tol, (name, _rel_err(a, w))
+        return
+    w, beta = bn.weight.detach(), bn.bias.detach()
+    _, mean, var = bna.batchnorm_act_train(y, b, w, beta, bn.eps, relu)
+    h = (y + b).float()
+    want_mean = h.mean(0)
+    want_var = ((h - want_mean).square().mean(0) if rows < 8192
+                else h.square().mean(0) - want_mean.square())
+    scale = float(want_var.max())
+    assert float((mean - want_mean).abs().max()) <= 1e-5 * scale
+    assert float((var - want_var).abs().max()) <= 1e-5 * scale
+    for k in ("running_mean", "running_var"):
+        ref = getattr(plain, k)
+        assert float((getattr(bn, k) - ref).abs().max()) <= 1e-5 * float(
+            ref.abs().max()), k
+    # one step of the type at the element, or a normalised value moved by
+    # the statistics' last bits where the output is near 0
+    step = 2 ** -22 if f32 else 2 ** -7
+    err = (got[0].float() - want[0].float()).abs()
+    assert bool((err <= step * want[0].float().abs() + 1e-4).all())
+    same_stats = bna.batchnorm_act_backward_plain(g, y, b, w, beta, mean,
+                                                  var, bn.eps, relu, True)
+    for name, a, w_ in zip(names, got[1:], same_stats):
+        assert _rel_err(a, w_) <= tol, (name, _rel_err(a, w_))
+    off = (got[1].float() - want[1].float()).abs() > tol * float(
+        want[1].float().abs().max())
+    assert float(off.float().mean()) <= 1e-5
+    for name, a, w_ in zip(names[1:], got[2:], want[2:]):
+        rel = float((a - w_).norm() / w_.norm())
+        assert rel <= 1e-2, (name, rel)
+
+
+@pytest.mark.parametrize("rows,width", [(120000, 64), (4608, 512), (8, 512)])
+def test_batchnorm_kernels_are_deterministic(cuda_device, rows, width):
+    y, b, g, bn = _bn_inputs(rows, width, torch.bfloat16, cuda_device)
+    runs = [_bn_run(bn, y, b, g, "relu") for _ in range(2)]
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
+
+
+def test_batchnorm_kernels_reject_what_they_do_not_take(cuda_device):
+    y, b, g, bn = _bn_inputs(64, 16, torch.float32, cuda_device)
+    w, beta = bn.weight.detach(), bn.bias.detach()
+    with pytest.raises(ValueError, match="contiguous"):
+        bna.batchnorm_act_train(torch.zeros(16, 64, device=cuda_device).t(),
+                                b, w, beta, 1e-5, True)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bna.batchnorm_act_train(y[:, :12].contiguous(), b[:12], w[:12],
+                                beta[:12], 1e-5, True)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        bna.batchnorm_act_train(y, b.cpu(), w, beta, 1e-5, True)
+    with pytest.raises(TypeError):
+        bna.batchnorm_act_eval(y.half(), None, w, beta, bn.running_mean,
+                               bn.running_var, 1e-5, False)
+
+
+@pytest.mark.parametrize("train_mode", [True, False])
+def test_a_batchnorm_the_kernels_do_not_take_is_refused_on_the_card(
+        cuda_device, train_mode, monkeypatch):
+    """On the card a BatchNorm has one path, the fused kernels: a width
+    they do not take raises there, and the plain chain never runs."""
+    bn = nn_layers.BatchNorm(12).to(cuda_device).train(train_mode)
+    y = torch.randn(64, 12, device=cuda_device)
+    plain, forward = [], nn_layers.BatchNorm.forward
+    monkeypatch.setattr(nn_layers.BatchNorm, "forward",
+                        lambda self, *a: plain.append(a) or forward(self, *a))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        bn.normalise(y, None, None, "relu")
+    assert plain == []
+
+
+def _full_batch(cfg, device, seed=0):
+    rs = np.random.RandomState(seed)
+    B, N, M = cfg.batch_size, cfg.input_pc_num, cfg.node_num
+    pc = rs.randn(B, N, 3).astype(np.float32)
+    batch = {"pc": pc, "sn": rs.randn(B, N, 3).astype(np.float32),
+             "node": pc[:, :M] + 0.1 * rs.randn(B, M, 3).astype(np.float32)}
+    if cfg.task == "segment":
+        batch["label"] = rs.randint(0, 16, B).astype(np.int32)
+        batch["seg"] = rs.randint(0, cfg.classes, (B, N))
+    else:
+        batch["label"] = rs.randint(0, cfg.classes, B)
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+@pytest.mark.parametrize("preset", ["modelnet40", "shapenetpart"])
+def test_batchnorm_kernels_engage_in_every_layer_of_the_train_step(
+        cuda_device, preset):
+    """Every BatchNorm of the full-width train step runs the kernels once
+    forward and once backward in each call, counted at the capture of a
+    graph (kernel 1's one call a step counts the calls); a replay
+    launches nothing from the host and gives the eager step's loss."""
+    from sonet_torch.train.graphs import StepGraph
+    cfg = getattr(config, preset)().replace(dropout=0.0)
+    state = train.init_state(cfg, device=cuda_device, seed=0)
+    train.state.set_capturable(state.optimizer, True)
+    norms = [m for m in state.model.modules()
+             if isinstance(m, nn_layers.BatchNorm)]
+    ran, fused = [], nn_layers.BatchNorm._fused
+
+    def recorded(self, *a):
+        ran.append(self)
+        return fused(self, *a)
+    step, _ = train.make_steps(cfg, 10)
+    batch = _full_batch(cfg, cuda_device)
+    restore = train.state.snapshot(state)
+    nn_layers.BatchNorm._fused = recorded
+    try:
+        eager = float(step(state, batch, None)[1]["loss"])
+    finally:
+        nn_layers.BatchNorm._fused = fused
+    restore()
+    assert sorted(map(id, ran)) == sorted(map(id, norms))
+    before, calls0 = dict(bna.launches), smw.windowed_vals.launches
+    graph = StepGraph(lambda **b: step(state, b, None)[1], cuda_device,
+                      snapshot=lambda: train.state.snapshot(state))
+    replayed = float(graph(**batch)["loss"])
+    calls = smw.windowed_vals.launches - calls0
+    grew = {k: bna.launches[k] - before[k] for k in before}
+    assert calls >= 1 and grew == {"train": calls * len(norms), "eval": 0,
+                                   "backward": calls * len(norms)}
+    assert replayed == eager
+    restore()
+    graph(**batch)
+    assert {k: bna.launches[k] - before[k] for k in before} == grew

@@ -33,7 +33,9 @@ from sonet_torch import config as tcfg
 from sonet_torch import train as ttrain
 from sonet_torch.convert import flatten, load_jax_variables
 from sonet_torch.models import build_model
-from sonet_torch.serving import (ARTIFACT_MANIFEST, ServingEngine,
+from sonet_torch.nn import layers
+from sonet_torch.serving import (ARTIFACT_MANIFEST, BATCHNORM_OP_MODULE,
+                                 KERNEL_OP_MODULE, ServingEngine,
                                  build_serve_fn, export_run, input_signature,
                                  load_exported)
 from sonet_torch.tasks import serve as tserve
@@ -243,6 +245,31 @@ def test_kernel_export_holds_the_operator(run, tmp_path):
     assert ops.count("sonet_torch.windowed_vals.default") == 1  # the pooling
     with pytest.raises(ValueError, match="exported for"):
         load_exported(str(tmp_path), device="cpu")
+
+
+@pytest.mark.parametrize("run", ["classify"], indirect=True)
+def test_kernel_export_holds_the_batchnorm_operator(run, tmp_path,
+                                                    monkeypatch):
+    """Where BatchNorm takes the fused kernels (on a card; here by
+    ``layers.fused``, traced through the operators' fake kernels), an
+    export keeps each BatchNorm as ``sonet_torch::batchnorm_act_eval``,
+    names the operators' module under ``requires``, and the program
+    answers as the JAX package does (the operator's CPU implementation)."""
+    task, run_dir, cfg, x, want = run
+    monkeypatch.setattr(layers, "fused", lambda t: t.shape[-1] % 8 == 0)
+    manifest = export_run(run_dir, out_dir=str(tmp_path), device="cpu",
+                          platforms=["cuda"])
+    assert manifest["requires"] == [KERNEL_OP_MODULE, BATCHNORM_OP_MODULE]
+    program = torch.export.load(str(tmp_path / "model.pt2"))
+    ops = [str(n.target) for n in program.graph.nodes
+           if n.op == "call_function"]
+    model = build_model(cfg, device="cpu")
+    norms = sum(isinstance(m, layers.BatchNorm) for m in model.modules())
+    assert norms and ops.count("sonet_torch.batchnorm_act_eval.default") \
+        == norms
+    with torch.no_grad():
+        got = program.module()(*(torch.from_numpy(a[:B]) for a in x))
+    _close(got.numpy(), want, JAX_TOL)
 
 
 @pytest.mark.parametrize("run", ["classify"], indirect=True)
