@@ -20,6 +20,9 @@ without a graph, only to keep its BatchNorm running statistics equal to
 the JAX package's, which computes them in every train step; its
 parameters then get no gradient and never move, as in the JAX package,
 where their gradient is zero.
+
+``Decoder.forward`` is the profiler range ``sonet:decoder``
+(``utils/spans.py``).
 """
 
 from __future__ import annotations
@@ -30,8 +33,11 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..utils.spans import span
 from .encoder import layer_kw
 from .layers import Dense, PointLayer, UpConv
+
+SPAN = "sonet:decoder"
 
 
 def _dense_out(in_features: int, features: int,
@@ -163,6 +169,10 @@ class Decoder(nn.Module):
 
     def forward(self, feature: torch.Tensor,
                 epoch: Optional[int] = None) -> DecoderOutput:
+        with span(SPAN):
+            return self._forward(feature, epoch)
+
+    def _forward(self, feature, epoch):
         linear_pc = conv = conv_out = None
         if self.fc_decoder is not None:
             linear_pc = self.fc_decoder(feature, epoch)

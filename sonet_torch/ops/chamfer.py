@@ -11,6 +11,10 @@ differ in their last bits from run to run.
 
 ``argmin`` returns the first minimum, on both packages.
 
+Each call is the profiler range ``sonet:chamfer`` (``utils/spans.py``)
+and counts once in ``chamfer.calls`` under its (P, N): in a CUDA graph
+once, at its capture.
+
 Under a mesh whose ``points`` axis is split (``parallel/``) the input
 cloud ``gt_pc`` is this rank's block and the reconstruction is the same
 on every points rank.  A predicted point's nearest input point is the
@@ -23,13 +27,17 @@ global count.
 
 from __future__ import annotations
 
+import collections
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
 
 from ..parallel import collectives
+from ..utils.spans import span
 from .pairwise import pairwise_sqdist
+
+SPAN = "sonet:chamfer"
 
 
 def robust_norm(diff: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -71,6 +79,16 @@ def chamfer(predict_pc: torch.Tensor, gt_pc: torch.Tensor) -> ChamferResult:
     """Bidirectional 1-NN Chamfer distance; predict_pc (B, P, 3), gt_pc
     (B, N, 3), channel-last (under a split points axis, N is this rank's
     part: see the module docstring)."""
+    chamfer.calls[(predict_pc.shape[1], gt_pc.shape[1])] += 1
+    with span(SPAN):
+        return _chamfer(predict_pc, gt_pc)
+
+
+# calls by (predicted points P, input points N of this rank)
+chamfer.calls = collections.Counter()
+
+
+def _chamfer(predict_pc: torch.Tensor, gt_pc: torch.Tensor) -> ChamferResult:
     split = collectives.axis_size("points") > 1
     # the distances only feed the argmins: no graph is kept for them
     d = pairwise_sqdist(predict_pc.detach(), gt_pc.detach())    # (B, P, N)

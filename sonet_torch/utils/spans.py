@@ -17,6 +17,18 @@ The program's spans, and what reads them:
   captured step, or one eager step on a host without a card.  Read by
   ``tools/torch_replay_ranges.py``, which compares the benchmark's replays
   of a traced train part (``benchmark/replays.py``) with these rows.
+* ``sonet:decoder`` (``nn/decoder.py``): the autoencoder's decoder
+  forward; ``sonet:chamfer`` (``ops/chamfer.py``): one Chamfer loss
+  call.  Inside a captured step these are recorded at the capture only,
+  so the benchmark reads them from a profiled eager step: the device time
+  of the kernels the range's ops launch and of those their backward ops
+  launch (``benchmark/span_time.py``, ``decoder_device_ms.train`` and
+  ``chamfer_device_ms.train``).
+
+Counters: ``ops.chamfer.calls`` (an attribute of the function, as
+``windowed_vals.launches`` is), the Chamfer calls by (predicted points,
+input points), counted where Python runs them (in a CUDA graph at its
+capture), beside ``ops.cuda.batchnorm_act.launches``.
 """
 
 from __future__ import annotations

@@ -1225,3 +1225,137 @@ def test_batchnorm_kernels_engage_in_every_layer_of_the_train_step(
     restore()
     graph(**batch)
     assert {k: bna.launches[k] - before[k] for k in before} == grew
+
+
+def _ae_device_epoch(device, items=24):
+    """``config.autoencoder()`` at full width (bf16) as the device pipeline
+    trains it: a resident split of ``items`` 2,048-point clouds with
+    nodes, ``init_state`` with a capturable Adam, and an ``EpochGraph``
+    over ``make_steps``' train step with ``sample_batch``.  Returns (the
+    graph, the eager step, the split, the state, the generator)."""
+    from sonet_torch.data import device_pipeline as dp
+    from sonet_torch.train.graphs import EpochGraph
+    cfg = config.autoencoder()
+    g = torch.Generator().manual_seed(0)
+    u = torch.randn((items, 2048, 3), generator=g)
+    u = u / u.norm(dim=-1, keepdim=True)
+    pc = u * (0.4 + 0.6 * torch.rand((items, 1, 3), generator=g))
+    node = pc[:, :cfg.node_num] + 0.05 * torch.randn(
+        (items, cfg.node_num, 3), generator=g)
+    data = dp.DeviceData(pc=pc.to(device), sn=u.to(device),
+                         node=node.to(device),
+                         label=torch.zeros(items, dtype=torch.int64,
+                                           device=device))
+    state = train.init_state(cfg, device=device, seed=0, steps_per_epoch=10)
+    train.state.set_capturable(state.optimizer, True)
+    step_fn, _ = train.make_steps(cfg, 10)
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def step(d, idx):
+        return step_fn(state, dp.sample_batch(d, idx, gen, cfg, train=True),
+                       gen)[1]
+
+    def advance():
+        state.step += 1
+    graph = EpochGraph(step, device, generators=(gen,),
+                       snapshot=lambda: train.state.snapshot(state),
+                       on_replay=advance)
+    return graph, step, data, state, gen
+
+
+def test_captured_autoencode_step_equals_eager(cuda_device):
+    """One full-width autoencode step from the same weights, Adam state and
+    draws, eagerly and as a replay of the device pipeline's captured step:
+    the forward is the same kernels on the same inputs (the loss and its
+    parts, the running statistics).  The backward adds with atomics (the
+    Chamfer gathers' and the encoder's gathers' scatter-adds), whose other
+    orders the bf16 backward rounds apart: the replay's gradients (Adam's
+    first moment) differ from the eager step's by about 0.5% of their
+    norm (5.4e-3 read on an H100), so they are held to 2e-2 over every
+    leaf whose true gradient is not zero (a convolution's bias before its
+    BatchNorm has none: its gradient is round-off, on both sides)."""
+    graph, step, data, state, gen = _ae_device_epoch(cuda_device)
+    model, opt = state.model, state.optimizer
+    row = np.arange(8)[None]
+    restore, gen_state = train.state.snapshot(state), gen.get_state()
+
+    def moments():
+        return {n: opt.state[p]["exp_avg"].clone()
+                for n, p in model.named_parameters() if p in opt.state}
+    eager = {k: float(v) for k, v in step(
+        data, torch.from_numpy(row[0]).to(cuda_device)).items()}
+    eager_m = moments()
+    eager_buf = {n: b.clone() for n, b in model.named_buffers()}
+    restore()
+    gen.set_state(gen_state)
+    replay = graph.run(data, row)
+    assert graph.captures == 1 and state.step == 1
+    assert set(replay) == set(eager)
+    for k, v in eager.items():
+        assert float(replay[k][0]) == pytest.approx(v, rel=1e-6), k
+    for n, b in model.named_buffers():
+        torch.testing.assert_close(b, eager_buf[n], rtol=1e-6, atol=1e-7)
+    got_m = moments()
+    assert set(got_m) == set(eager_m)
+    num = den = 0.0
+    for n, m in eager_m.items():
+        if not n.endswith("Conv_0.bias"):
+            num += float((got_m[n] - m).double().square().sum())
+            den += float(m.double().square().sum())
+    assert (num / den) ** 0.5 < 2e-2
+
+
+def test_chamfer_calls_two_a_captured_autoencode_step(cuda_device):
+    """``chamfer.calls`` counts the final cloud's (1,280 points) and pc4's
+    (256) Chamfer calls once each a step that Python runs: the capture's
+    warm-up and the capture itself, and no replay."""
+    from sonet_torch.ops import chamfer
+    graph, _, data, _, _ = _ae_device_epoch(cuda_device)
+    before, k1 = dict(chamfer.calls), smw.windowed_vals.launches
+    graph.run(data, np.arange(24).reshape(3, 8))
+    ran = smw.windowed_vals.launches - k1       # one a Python-run step
+    assert graph.captures == 1 and ran == 2
+    grew = {k: v - before.get(k, 0) for k, v in chamfer.calls.items()
+            if v != before.get(k, 0)}
+    assert grew == {(1280, 1024): ran, (256, 1024): ran}
+    graph.run(data, np.arange(16).reshape(2, 8))
+    assert graph.captures == 1 and smw.windowed_vals.launches - k1 == ran
+    assert {k: v - before.get(k, 0) for k, v in chamfer.calls.items()
+            if v != before.get(k, 0)} == grew
+
+
+def test_batchnorm_kernels_engage_in_every_decoder_layer(cuda_device):
+    """Every BatchNorm of the full-width autoencode step runs the fused
+    kernels forward in each step Python runs, and backward but for the
+    two of the 64x64 stage, which runs without a graph for its running
+    statistics; the decoder's include the two-pass path at 8 rows (the FC
+    branch) and 32-2,048 rows (the first four convolutions), and the NHWC
+    convolutions whose bias keeps its gradient."""
+    graph, _, data, state, _ = _ae_device_epoch(cuda_device)
+    norms = [m for m in state.model.modules()
+             if isinstance(m, nn_layers.BatchNorm)]
+    unread = [m for n, m in state.model.named_modules()
+              if isinstance(m, nn_layers.BatchNorm)
+              and (".UpConv_5." in n or ".ConvToPC_2." in n)]
+    assert len(unread) == 2
+    ran, fused = [], nn_layers.BatchNorm._fused
+
+    def recorded(self, y, *a):
+        ran.append((self, y.numel() // y.shape[-1], y.dim()))
+        return fused(self, y, *a)
+    before, k1 = dict(bna.launches), smw.windowed_vals.launches
+    nn_layers.BatchNorm._fused = recorded
+    try:
+        graph.run(data, np.arange(16).reshape(2, 8))
+    finally:
+        nn_layers.BatchNorm._fused = fused
+    calls = smw.windowed_vals.launches - k1
+    assert calls == 2
+    assert sorted(id(m) for m, _, _ in ran) == sorted(
+        id(m) for m in norms for _ in range(calls))
+    rows = {r for m, r, _ in ran}
+    assert {8, 32, 128, 512, 2048} <= rows
+    assert any(dim == 4 for _, _, dim in ran)
+    grew = {k: bna.launches[k] - before[k] for k in before}
+    assert grew == {"train": calls * len(norms), "eval": 0,
+                    "backward": calls * (len(norms) - len(unread))}

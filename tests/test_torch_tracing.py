@@ -93,3 +93,51 @@ def test_span_enters_no_profiler_code_when_off(monkeypatch):
     with profile(activities=[ProfilerActivity.CPU]):
         graph.run(data, table)
     assert entered == [graphs.REPLAY] * ROWS
+
+
+def _tiny_autoencode_step():
+    """A tiny auto-encoder's state, its train step and a batch: the decoder
+    emits 16 FC and 1,024 conv points, against 64 input points."""
+    cfg = config.tiny_test().replace(task="autoencode")
+    state = init_state(cfg, device="cpu", seed=0, steps_per_epoch=ROWS)
+    train_step, _ = make_steps(cfg, ROWS)
+    g = torch.Generator().manual_seed(2)
+    B, N = cfg.batch_size, cfg.input_pc_num
+    batch = {"pc": torch.randn((B, N, 3), generator=g),
+             "sn": torch.randn((B, N, 3), generator=g),
+             "node": torch.randn((B, cfg.node_num, 3), generator=g),
+             "label": torch.zeros(B, dtype=torch.int64)}
+    return lambda: train_step(state, batch, None), cfg
+
+
+def test_decoder_and_chamfer_ranges_and_counter(one_thread):
+    from sonet_torch.nn.decoder import SPAN as DECODER
+    from sonet_torch.ops import chamfer
+    step, cfg = _tiny_autoencode_step()
+    final = (cfg.output_fc_pc_num + cfg.output_conv_pc_num, cfg.input_pc_num)
+    pc4 = (256, cfg.input_pc_num)
+    before = dict(chamfer.calls)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step()
+    # the decoder's forward, then the final cloud's and pc4's Chamfer loss
+    assert _sonet_ranges(prof) == [DECODER, "sonet:chamfer", "sonet:chamfer"]
+    grew = {k: v - before.get(k, 0) for k, v in chamfer.calls.items()
+            if v != before.get(k, 0)}
+    assert grew == {final: 1, pc4: 1}
+
+
+def test_decoder_and_chamfer_spans_enter_no_profiler_code_when_off(
+        monkeypatch):
+    entered = []
+    real = spans.record_function
+
+    def counting(name):
+        entered.append(name)
+        return real(name)
+    monkeypatch.setattr(spans, "record_function", counting)
+    step, _ = _tiny_autoencode_step()
+    step()
+    assert entered == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        step()
+    assert entered == ["sonet:decoder", "sonet:chamfer", "sonet:chamfer"]
