@@ -32,7 +32,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    forward, backward) at each main-path shape in bf16 against its plain
    version, timed by graph beside its bound, the plain version and
    ``F.batch_norm`` with ``relu``; its launches are counted by mode on
-   every path (``batchnorm_act.train``, ``.eval``, ``.backward``);
+   every path (``batchnorm_act.train``, ``.eval``, ``.backward``).  Node
+   pooling's backward (``segment_max_grad``, two kernels) against its
+   plain version, ``route_max_grad_plain``, at the three main-path shapes
+   (8, 15000, 384), (8, 3072, 384) and (8, 1536, 384) with M=25, in bf16
+   with sorted ids from a real assignment and unsorted ids, at the
+   flagship in float32 and on edge cases (``pool_grad_cases``), each
+   ``==`` but the point0 row of a cloud with an empty node (one rounding);
+   timed by graph beside its bound, its two kernels' device durations and
+   the plain chain's time; its calls are counted on every path, once a
+   train step and never in a served forward;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
    width, seeded random weights) served through ``ServingEngine`` on the
    card, its forward a captured CUDA graph: the warm-up captures it
@@ -524,10 +533,13 @@ def phase_kernels():
     gen = torch.Generator(device=dev).manual_seed(0)
     B, N, k, M = 8, 5000, 3, 64
     ids = _flagship_ids(torch, B, N, M, k, gen, dev)           # (8, 15000)
-    return [_check_segment_max_window(torch, gen, ids, M,
-                                      _mnist_ids(torch, np, dev)),
+    ids_mnist = _mnist_ids(torch, np, dev)
+    pool_ids = dict(zip(POOL_GRAD_SHAPES, (
+        ids, _flagship_ids(torch, B, 1024, M, k, gen, dev), ids_mnist)))
+    return [_check_segment_max_window(torch, gen, ids, M, ids_mnist),
             _check_segment_argmax(torch, gen, ids, M),
-            *_check_batchnorm_act(torch, gen)]
+            *_check_batchnorm_act(torch, gen),
+            _check_segment_max_grad(torch, gen, pool_ids)]
 
 
 def host_us_per_call(fn, calls: int = 200) -> float:
@@ -928,6 +940,233 @@ def _check_segment_argmax(torch, gen, ids, M):
             "note": "on no path of the model; held in phase 3 only"}
 
 
+
+# node pooling's backward (B, N, C, M) on the main path: the classifier's
+# and the autoencoder's first pooling over 8 x 15,000 stacked points, the
+# segmenter's over 8 x 3,072, the MNIST classifier's over 8 x 1,536 nodes
+POOL_GRAD_SHAPES = ((8, 15000, 384, 64), (8, 3072, 384, 64),
+                    (8, 1536, 384, 25))
+
+
+def pool_grad_inputs(torch, gen, data, ids, M, planted_ties=False):
+    """The other inputs of node pooling's backward for ``data`` (B, N, C)
+    and ``ids`` (B, N): the forward's maxima in data's type (kernel 1 on a
+    card; an empty node takes point 0's row), the int32 counts and a
+    cotangent in data's type.
+    ``planted_ties`` first copies the row of each node's first point onto
+    its second (in place, sorted ids), so that every channel of those
+    nodes has an exact tie at its maximum or below it."""
+    from sonet_torch.ops import segment_counts, segment_max_windowed
+    if planted_ties:
+        for b in range(ids.shape[0]):
+            same = ids[b, 1:] == ids[b, :-1]
+            first = torch.nonzero(same & torch.cat(
+                [same.new_ones(1), ~same[:-1]]))[:, 0]
+            data[b, first + 1] = data[b, first]
+    counts = segment_counts(ids, M)
+    out = segment_max_windowed(data, ids, M, counts)
+    g = torch.randn(out.shape, generator=gen, device=data.device).to(
+        data.dtype)
+    return out, counts, g
+
+
+def pool_grad_cases(torch, gen, dev):
+    """Edge cases for node pooling's backward as (name, data, ids, out,
+    counts, g, point0_idx, vector): ``vector`` is whether the kernels take
+    16 bytes a thread there (``vector_path``)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def rand_ids(shape, lo, hi, sort=False):
+        i = torch.randint(lo, hi, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        return torch.sort(i, dim=1).values.contiguous() if sort else i
+
+    cases = []
+
+    def add(name, data, ids, M, vector, point0=None, counts_dtype=None,
+            g_dtype=None, ties=False):
+        out, counts, g = pool_grad_inputs(torch, gen, data, ids, M, ties)
+        if counts_dtype is not None:
+            counts = counts.to(counts_dtype)
+        if g_dtype is not None:
+            g = rand(g.shape, g_dtype)
+        cases.append((name, data, ids, out, counts, g, point0, vector))
+
+    # nodes 3 and 14-19 empty; their cotangent goes to point0's row
+    empty = rand_ids((2, 700), 0, 14, sort=True)
+    empty[empty == 3] = 2
+    empty = torch.sort(empty, dim=1).values.contiguous()
+    p0 = torch.tensor([5, 611], device=dev)
+    add("planted ties, bf16", rand((3, 999, 384), bf16),
+        rand_ids((3, 999), 0, 16, sort=True), 16, True, ties=True)
+    add("planted ties, f32", rand((3, 999, 384), f32),
+        rand_ids((3, 999), 0, 16, sort=True), 16, True, ties=True)
+    add("empty nodes, point0_idx int64, f32 counts, bf16",
+        rand((2, 700, 384), bf16), empty, 20, True, point0=p0,
+        counts_dtype=f32)
+    add("empty nodes, point0_idx int32, f32 cotangent, bf16",
+        rand((2, 700, 384), bf16), empty, 20, True,
+        point0=p0.to(torch.int32), g_dtype=f32)
+    add("empty nodes, no point0_idx, int64 counts, f32",
+        rand((2, 700, 384), f32), empty, 20, True, counts_dtype=torch.int64)
+    add("unsorted with ties, bf16", rand((2, 1000, 384), bf16),
+        rand_ids((2, 1000), 0, 64), 64, True)
+    add("ids outside [0, M) sorted, bf16", rand((2, 1000, 384), bf16),
+        rand_ids((2, 1000), -3, 20, sort=True), 16, True)
+    add("ids outside [0, M) unsorted, f32", rand((2, 1000, 384), f32),
+        rand_ids((2, 1000), -3, 20), 16, True)
+    add("ragged N=1001, one node a cloud, bf16", rand((3, 1001, 384), bf16),
+        torch.full((3, 1001), 7, dtype=torch.int32, device=dev), 8, True)
+    add("narrow rows C=64, bf16", rand((4, 999, 64), bf16),
+        rand_ids((4, 999), 0, 16, sort=True), 16, True)
+    add("wide rows C=2048, bf16", rand((2, 300, 2048), bf16),
+        rand_ids((2, 300), 0, 16, sort=True), 16, True)
+    add("odd C=33, f32", rand((3, 500, 33), f32),
+        rand_ids((3, 500), 0, 16, sort=True), 16, False)
+    flat = rand((2 * 500 * 384 + 1,), bf16)
+    add("unaligned data view, bf16", flat[1:].view(2, 500, 384),
+        rand_ids((2, 500), 0, 16, sort=True), 16, False)
+    # zeros of both signs, and -inf at a node's maximum
+    data = rand((2, 640, 384), bf16)
+    seg = rand_ids((2, 640), 0, 8, sort=True)
+    data[seg == 1] = float("-inf")
+    data[seg == 2] = torch.where(rand((2, 640, 384), f32) > 0, 0.0, -0.0).to(
+        bf16)[seg == 2]
+    add("zeros of both signs and -inf, bf16", data, seg, 8, True)
+    return cases
+
+
+def pool_grad_mismatch(torch, got, want, counts, g, point0_idx):
+    """Where the kernels' ``got`` leaves the plain version's ``want``: a
+    list of what differs, empty if every row is ``==`` but the
+    ``point0_idx`` rows of clouds with an empty node, which may differ by
+    one rounding in the data's type of their value plus the float32
+    reordering of the empty nodes' sum (M ulps of its terms' sizes)."""
+    B, N, C = want.shape
+    M = counts.shape[1]
+    eps = 2.0 ** -7 if want.dtype == torch.bfloat16 else 2.0 ** -23
+    rows = torch.zeros((B, N), dtype=torch.bool, device=want.device)
+    batch = torch.arange(B, device=want.device)
+    p0 = (torch.zeros_like(batch) if point0_idx is None
+          else point0_idx.long())
+    empty = counts == 0
+    rows[batch, p0] = empty.any(1)
+    bad = []
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return [f"got {tuple(got.shape)} {got.dtype}, want "
+                f"{tuple(want.shape)} {want.dtype}"]
+    if not torch.equal(got[~rows], want[~rows]):
+        n = int((got[~rows] != want[~rows]).sum())
+        bad.append(f"{n} elements off the point0 rows differ")
+    if bool(rows.any()):
+        size = torch.where(empty[..., None], g.float().abs(), 0.0).sum(1)
+        a, w = got[rows].float(), want[rows].float()
+        tol = eps * w.abs() + M * 2.0 ** -23 * size[rows.any(1)]
+        if not bool(((a - w).abs() <= tol).all()):
+            bad.append(f"point0 rows off by up to "
+                       f"{float((a - w).abs().max()):.3g}")
+    return bad
+
+def _check_segment_max_grad(torch, gen, ids_by_shape):
+    """Node pooling's backward (``csrc/segment_max_grad.cu``) against its
+    plain version, ``route_max_grad_plain``, on the card: at each main-path
+    shape in bf16 with node-sorted ids from a real top-k assignment
+    (``ids_by_shape``) and unsorted ids, at the flagship in float32, and on
+    the edge cases of ``pool_grad_cases``, each ``==`` but the point0 row
+    of a cloud with an empty node (``pool_grad_mismatch``); then timed by
+    graph replay beside its bound (each input byte read once, each output
+    byte written once), its two kernels' device durations, and the plain
+    chain's time by graph.  No PyTorch call computes this function, so
+    there is no library time."""
+    from sonet_torch.ops.cuda import segment_max_grad as smg
+    from sonet_torch.ops.segment import route_max_grad_plain
+    dev = torch.device("cuda")
+    row = {"name": "segment_max_grad", "route": "cuda",
+           "source": "sonet_torch/csrc/segment_max_grad.cu",
+           "replaces": "none (sonet_tpu/ops/segment.py route_max_grad's "
+                       "one-hot products run on the MXU)",
+           "launches": None, "library_ms": None, "shapes": {}}
+    cases = []
+    for shape in POOL_GRAD_SHAPES:
+        B, N, C, M = shape
+        ids = ids_by_shape[shape]
+        for dtype in ((torch.bfloat16, torch.float32) if shape ==
+                      POOL_GRAD_SHAPES[0] else (torch.bfloat16,)):
+            data = torch.randn((B, N, C), generator=gen, device=dev).to(dtype)
+            cases.append((f"{shape} {str(dtype).split('.')[-1]} sorted",
+                          shape, data, ids))
+        unsorted = ids[:, torch.randperm(N, generator=gen, device=dev)]
+        cases.append((f"{shape} bfloat16 unsorted", shape,
+                      torch.randn((B, N, C), generator=gen,
+                                  device=dev).to(torch.bfloat16),
+                      unsorted.contiguous()))
+    for name, shape, data, ids in cases:
+        out, counts, g = pool_grad_inputs(torch, gen, data, ids, shape[3])
+        cases_in = (data, ids, out, counts, g, None)
+        got = smg.segment_max_grad(*cases_in)
+        torch.cuda.synchronize()
+        bad = pool_grad_mismatch(torch, got, route_max_grad_plain(*cases_in),
+                                 counts, g, None)
+        log(f"segment_max_grad at {name}, M={shape[3]}, "
+            f"{int((counts == 0).sum())} empty nodes: "
+            f"{'equal' if not bad else bad}")
+        if bad:
+            raise AssertionError(f"segment_max_grad differs from its plain "
+                                 f"version at {name}: {bad}")
+    for name, data, ids, out, counts, g, p0, vector in pool_grad_cases(
+            torch, gen, dev):
+        if smg.vector_path(data) != vector:
+            raise AssertionError(f"segment_max_grad [{name}]: not on the "
+                                 f"path its shape names")
+        got = smg.segment_max_grad(data, ids, out, counts, g, p0)
+        torch.cuda.synchronize()
+        bad = pool_grad_mismatch(torch, got, route_max_grad_plain(
+            data, ids, out, counts, g, p0), counts, g, p0)
+        log(f"segment_max_grad [{name}] {tuple(data.shape)}: "
+            f"{'equal' if not bad else bad}")
+        if bad:
+            raise AssertionError(f"segment_max_grad differs from its plain "
+                                 f"version on {name}: {bad}")
+
+    for shape in POOL_GRAD_SHAPES:
+        B, N, C, M = shape
+        for dtype in ((torch.bfloat16, torch.float32) if shape ==
+                      POOL_GRAD_SHAPES[0] else (torch.bfloat16,)):
+            data = torch.randn((B, N, C), generator=gen, device=dev).to(dtype)
+            args = (data, ids_by_shape[shape],
+                    *pool_grad_inputs(torch, gen, data, ids_by_shape[shape],
+                                      M))
+            el = data.element_size()
+            nbytes = 2 * B * N * C * el + B * N * 4 + 2 * B * M * C * el \
+                + B * M * 4
+            bound_ms, bound_by = _bound(nbytes, B * N * C)
+            graph_ms = time_graph_ms(lambda: smg.segment_max_grad(*args),
+                                     reps=20, inner=20)
+            plain_ms = time_graph_ms(lambda: route_max_grad_plain(*args),
+                                     reps=10, inner=5)
+            dev_ms = device_times_ms(lambda: smg.segment_max_grad(*args), 20,
+                                     "pool_grad_ties", "pool_grad_route")
+            key = f"{B}x{N}x{C} M={M} {str(dtype).split('.')[-1]}"
+            row["shapes"][key] = {
+                "graph_ms": graph_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "nbytes": nbytes,
+                "plain_graph_ms": plain_ms,
+                "ties_ms": dev_ms["pool_grad_ties"],
+                "route_ms": dev_ms["pool_grad_route"], "gap_ms": dev_ms["gap"]}
+            log(f"segment_max_grad at {key}: {graph_ms:.4f} ms by graph "
+                f"replay (the table's zeroing and both kernels), bound "
+                f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB at "
+                f"{HBM_BYTES_PER_S / 1e12} TB/s): {bound_ms / graph_ms:.1%}; "
+                f"device durations: ties {dev_ms['pool_grad_ties']:.4f} ms, "
+                f"gap {dev_ms['gap']:.4f} ms, route "
+                f"{dev_ms['pool_grad_route']:.4f} ms; the plain chain "
+                f"{plain_ms:.4f} ms by graph")
+    return row
+
+
 # the fused BatchNorm's (rows, width) on the main path: the first
 # PointNet over 8 x 15,000 stacked points, the segmenter head's first
 # layer over 24,576, the kNN layer's 4,608 (two-pass) and a head's rank 2
@@ -1175,6 +1414,9 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
             or any(warm[n] != 2 for n in on_path)):
         raise AssertionError(f"the warm-up did not capture kernel 1 in the "
                              f"forward at {want_shape}: {shapes}, {warm}")
+    if warm["segment_max_grad"]:
+        raise AssertionError(f"the served forward ran pooling's backward: "
+                             f"{warm}")
     _check_batchnorm_calls(norms, warm, 2, _served_norms(model, cfg),
                            "serving warm-up")
 
@@ -1404,7 +1646,7 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
     launches = _launch_counts(kernel_counters)
     log(f"{TRAIN_STEPS} train steps: losses {losses}; kernel launches "
         f"{launches}")
-    for n in on_path:
+    for n in (*on_path, "segment_max_grad"):
         if launches[n] != TRAIN_STEPS:
             raise AssertionError(f"{n} launched {launches[n]} times in "
                                  f"{TRAIN_STEPS} train steps, want one a step")
@@ -4054,11 +4296,13 @@ def _sharded_pooling_check(mesh, dev):
 
 def _mesh_counters():
     """Every kernel's launch counter by its row's name: kernels 1 and 2,
-    and the fused BatchNorm by mode."""
+    the fused BatchNorm by mode, and node pooling's backward."""
     from sonet_torch.ops.cuda.segment_argmax import segment_argmax
+    from sonet_torch.ops.cuda.segment_max_grad import segment_max_grad
     from sonet_torch.ops.cuda.segment_max_window import windowed_vals
     return {"segment_max_window": windowed_vals,
-            "segment_argmax": segment_argmax, **batchnorm_counters()}
+            "segment_argmax": segment_argmax, **batchnorm_counters(),
+            "segment_max_grad": segment_max_grad}
 
 
 def _planted_sync_grads(model, mesh):

@@ -10,7 +10,10 @@ package) is a ``torch.autograd.Function`` whose backward is
 ``route_max_grad``: each output cotangent goes back to the winning
 point(s) through a winner-equality mask.  On exact ties the cotangent is
 split equally among the winners (sum-preserving), as in the JAX package.
-``segment_max_fast`` (``ops/segment_fast.py``) shares the backward.
+``segment_max_fast`` (``ops/segment_fast.py``) shares the backward.  Its
+plain version, ``route_max_grad_plain``, routes through one-hot products
+as the JAX package does; it is what the CPU runs, and the CUDA kernels of
+``csrc/segment_max_grad.cu`` compute the same bits on a card.
 
 ``segment_max_onehot``, ``segment_sum_onehot`` and ``segment_mean_onehot``
 are the JAX package's one-hot formulations, kept as oracles (no path
@@ -46,7 +49,22 @@ def _take_rows(table: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
 def route_max_grad(data: torch.Tensor, seg_ids: torch.Tensor,
                    out: torch.Tensor, counts: torch.Tensor, g: torch.Tensor,
                    point0_idx: torch.Tensor | None = None,
-                   reduce_ties=None) -> torch.Tensor:
+                   tie_axes=()) -> torch.Tensor:
+    """Gradient of a segment max with respect to ``data``: the operator
+    ``sonet_torch::segment_max_grad`` (``ops/cuda/segment_max_grad.py``),
+    which runs ``route_max_grad_plain`` on the CPU and the kernels of
+    ``csrc/segment_max_grad.cu`` on a CUDA device.  ``tie_axes``: the mesh
+    axes over which the tie counts are summed (``reduce_ties`` below)."""
+    from .cuda.segment_max_grad import segment_max_grad
+    return segment_max_grad(data, seg_ids, out, counts, g, point0_idx,
+                            tie_axes)
+
+
+def route_max_grad_plain(data: torch.Tensor, seg_ids: torch.Tensor,
+                         out: torch.Tensor, counts: torch.Tensor,
+                         g: torch.Tensor,
+                         point0_idx: torch.Tensor | None = None,
+                         reduce_ties=None) -> torch.Tensor:
     """Gradient of a segment max with respect to ``data`` (B, N, C), given
     the forward's output ``out`` (B, M, C) in ``data.dtype``, the node
     ``counts`` (B, M) and the output cotangent ``g`` (B, M, C).

@@ -65,9 +65,8 @@ class _PointsMax(torch.autograd.Function):
     def backward(ctx, g):
         data, seg_ids, counts, vals = ctx.saved_tensors
         with collectives.use_mesh(ctx.mesh):
-            grad = route_max_grad(
-                data, seg_ids, vals.to(data.dtype), counts, g,
-                reduce_ties=lambda t: collectives.all_reduce(t, ("points",)))
+            grad = route_max_grad(data, seg_ids, vals.to(data.dtype),
+                                  counts, g, tie_axes=("points",))
         return grad, None, None, None, None
 
 

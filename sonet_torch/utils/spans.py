@@ -28,7 +28,9 @@ The program's spans, and what reads them:
 Counters: ``ops.chamfer.calls`` (an attribute of the function, as
 ``windowed_vals.launches`` is), the Chamfer calls by (predicted points,
 input points), counted where Python runs them (in a CUDA graph at its
-capture), beside ``ops.cuda.batchnorm_act.launches``.
+capture), beside ``ops.cuda.batchnorm_act.launches`` and
+``ops.cuda.segment_max_grad.segment_max_grad.launches`` (node pooling's
+backward on a card: one call, a launch of each of its two kernels).
 """
 
 from __future__ import annotations

@@ -18,8 +18,10 @@ import chip_smoke  # noqa: E402  (the edge cases it holds the kernel to)
 from sonet_torch import config, train
 from sonet_torch.models import build_model
 from sonet_torch.nn import layers as nn_layers
+from sonet_torch.ops import segment as seg
 from sonet_torch.ops.cuda import batchnorm_act as bna
 from sonet_torch.ops.cuda import segment_argmax as sam
+from sonet_torch.ops.cuda import segment_max_grad as smg
 from sonet_torch.ops.cuda import segment_max_window as smw
 
 pytestmark = pytest.mark.cuda
@@ -1359,3 +1361,155 @@ def test_batchnorm_kernels_engage_in_every_decoder_layer(cuda_device):
     grew = {k: bna.launches[k] - before[k] for k in before}
     assert grew == {"train": calls * len(norms), "eval": 0,
                     "backward": calls * (len(norms) - len(unread))}
+
+
+# ---------------------------------------------------------------------------
+# node pooling's backward: csrc/segment_max_grad.cu
+# ---------------------------------------------------------------------------
+
+def _pool_grad_both(data, ids, out, counts, g, point0_idx=None):
+    """(the kernels' gradient, the plain version's), both on the card."""
+    before = smg.segment_max_grad.launches
+    got = smg.segment_max_grad(data, ids, out, counts, g, point0_idx)
+    torch.cuda.synchronize()
+    assert smg.segment_max_grad.launches == before + 1
+    want = seg.route_max_grad_plain(data, ids, out, counts, g, point0_idx)
+    return got, want
+
+
+@pytest.mark.parametrize("sorted_ids", [True, False])
+@pytest.mark.parametrize("shape,dtype", [
+    (chip_smoke.POOL_GRAD_SHAPES[0], torch.bfloat16),
+    (chip_smoke.POOL_GRAD_SHAPES[1], torch.bfloat16),
+    (chip_smoke.POOL_GRAD_SHAPES[2], torch.bfloat16),
+    (chip_smoke.POOL_GRAD_SHAPES[0], torch.float32)])
+def test_segment_max_grad_kernels_equal_plain(cuda_device, shape, dtype,
+                                              sorted_ids):
+    """At the main path's shapes, every node occupied: the kernels'
+    gradient ``==`` the plain version's, every element."""
+    B, N, C, M = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    data = torch.randn((B, N, C), generator=gen,
+                       device=cuda_device).to(dtype)
+    ids = torch.randint(0, M, (B, N), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    if sorted_ids:
+        ids = torch.sort(ids, dim=1).values.contiguous()
+    out, counts, g = chip_smoke.pool_grad_inputs(torch, gen, data, ids, M)
+    assert bool((counts > 0).all())
+    assert smg.vector_path(data)
+    got, want = _pool_grad_both(data, ids, out, counts, g)
+    assert torch.equal(got, want)
+
+
+def test_segment_max_grad_edge_cases(cuda_device):
+    """Planted ties, empty nodes with and without ``point0_idx`` (that row
+    within one rounding), ids outside [0, M), counts and cotangents of
+    other types, narrow, wide, odd and unaligned rows, zeros of both
+    signs and -inf: each on the path its shape names, each ``==`` but
+    that row."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    failed = {}
+    for name, data, ids, out, counts, g, p0, vector in (
+            chip_smoke.pool_grad_cases(torch, gen, cuda_device)):
+        assert smg.vector_path(data) == vector, name
+        got, want = _pool_grad_both(data, ids, out, counts, g, p0)
+        bad = chip_smoke.pool_grad_mismatch(torch, got, want, counts, g, p0)
+        if bad:
+            failed[name] = bad
+    assert not failed
+
+
+def test_segment_max_grad_is_deterministic(cuda_device):
+    """Integer tie counts: two calls on the same inputs, unsorted ids
+    included, give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    data = torch.randn((8, 3072, 384), generator=gen,
+                       device=cuda_device).to(torch.bfloat16)
+    ids = torch.randint(0, 64, (8, 3072), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    out, counts, g = chip_smoke.pool_grad_inputs(torch, gen, data, ids, 64)
+    first = smg.segment_max_grad(data, ids, out, counts, g)
+    assert torch.equal(first, smg.segment_max_grad(data, ids, out, counts, g))
+
+
+def test_segment_max_grad_rejects_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    data = torch.randn((2, 100, 64), generator=gen, device=cuda_device)
+    ids = torch.randint(0, 8, (2, 100), generator=gen, device=cuda_device,
+                        dtype=torch.int32)
+    out, counts, g = chip_smoke.pool_grad_inputs(torch, gen, data, ids, 8)
+    before = smg.segment_max_grad.launches
+    with pytest.raises(TypeError, match="data dtype"):
+        smg.segment_max_grad(data.half(), ids, out.half(), counts, g)
+    with pytest.raises(TypeError, match="out dtype"):
+        smg.segment_max_grad(data, ids, out.bfloat16(), counts, g)
+    with pytest.raises(TypeError, match="seg_ids dtype"):
+        smg.segment_max_grad(data, ids.long(), out, counts, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        smg.segment_max_grad(data.transpose(0, 1).contiguous().transpose(
+            0, 1), ids, out, counts, g)
+    with pytest.raises(ValueError, match="counts"):
+        smg.segment_max_grad(data, ids, out, counts[:, :4], g)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        smg.segment_max_grad(data, ids, out, counts.cpu(), g)
+    assert smg.segment_max_grad.launches == before
+
+
+def test_segment_max_grad_engages_once_a_captured_modelnet40_step(
+        cuda_device, monkeypatch):
+    """The full-width modelnet40 train step, eager and as a captured
+    graph: node pooling's backward goes through the kernels once in each
+    step that Python runs (the eager step, the capture's warm-up and the
+    capture) and in no replay; the eager step's and the replayed
+    step's gradient each equal the plain version's on their inputs, and
+    the replayed one equals the kernels' eager call on the same inputs."""
+    from sonet_torch.ops import segment_fast
+    from sonet_torch.train.graphs import StepGraph
+    cfg = config.modelnet40().replace(dropout=0.0)
+    state = train.init_state(cfg, device=cuda_device, seed=0)
+    train.state.set_capturable(state.optimizer, True)
+    step, _ = train.make_steps(cfg, 10)
+    batch = _full_batch(cfg, cuda_device)
+    seen, real = [], segment_fast.route_max_grad
+
+    def recorded(*a, **k):
+        grad = real(*a, **k)
+        # detached: a saved input would keep its step's autograd graph,
+        # and an older graph's nodes break the next capture
+        seen.append(([t.detach() for t in a], k, grad.detach()))
+        return grad
+    monkeypatch.setattr(segment_fast, "route_max_grad", recorded)
+    restore = train.state.snapshot(state)
+    launches0, calls0 = (smg.segment_max_grad.launches,
+                         smw.windowed_vals.launches)
+    eager = float(step(state, batch, None)[1]["loss"])
+    assert smg.segment_max_grad.launches - launches0 == 1 == len(seen)
+    eager_in = [t.clone() for t in seen[0][0]]
+    eager_grad = seen[0][2].clone()
+    restore()
+    graph = StepGraph(lambda **b: step(state, b, None)[1], cuda_device,
+                      snapshot=lambda: train.state.snapshot(state))
+    replayed = float(graph(**batch)["loss"])
+    torch.cuda.synchronize()
+    calls = smw.windowed_vals.launches - calls0
+    assert calls == 3 == len(seen)          # eager, warm-up, capture
+    assert smg.segment_max_grad.launches - launches0 == calls
+    assert replayed == eager
+    # the replay wrote the captured step's tensors, held here since capture
+    captured_in, captured_grad = seen[2][0], seen[2][2]
+    p0 = seen[0][1]["point0_idx"]
+    for inputs, grad in ((eager_in, eager_grad),
+                         (captured_in, captured_grad)):
+        data, ids, out, counts, g = inputs
+        want = seg.route_max_grad_plain(data, ids, out, counts, g, p0)
+        assert not chip_smoke.pool_grad_mismatch(torch, grad, want, counts,
+                                                 g, p0)
+    # the forward is the same kernels on the same inputs
+    for a, b in zip(eager_in[:4], captured_in[:4]):
+        assert torch.equal(a, b)
+    again = smg.segment_max_grad(*captured_in, seen[2][1]["point0_idx"])
+    assert torch.equal(again, captured_grad)
+    before = smg.segment_max_grad.launches
+    graph(**batch)                          # a replay launches nothing
+    assert smg.segment_max_grad.launches == before
