@@ -1082,7 +1082,7 @@ def _check_segment_max_grad(torch, gen, ids_by_shape):
     chain's time by graph.  No PyTorch call computes this function, so
     there is no library time."""
     from sonet_torch.ops.cuda import segment_max_grad as smg
-    from sonet_torch.ops.segment import route_max_grad_plain
+    from sonet_torch.ops.cuda.segment_max_grad import route_max_grad_plain
     dev = torch.device("cuda")
     row = {"name": "segment_max_grad", "route": "cuda",
            "source": "sonet_torch/csrc/segment_max_grad.cu",
@@ -2621,14 +2621,14 @@ def phase_mnist(kernel_counters, on_path, runs, card):
     run = os.path.join(runs, "mnist")
 
     # every launch of kernel 1 in the two commands, by its shape
-    real, shapes = smw._kernel(), {}
+    real, shapes = smw._kernel, {}
 
     def recording(*args):
         key = _kernel1_key(args)                    # B, N, C, M
         shapes[key] = shapes.get(key, 0) + 1
         return real(*args)
     _reset(kernel_counters)
-    smw._fn = recording
+    smw._kernel = recording
     try:
         with _GraphCounter() as graphs:
             t0 = time.perf_counter()
@@ -2637,7 +2637,7 @@ def phase_mnist(kernel_counters, on_path, runs, card):
             rc, out = _cli_output(["infer", "--run", run, "--device",
                                    "cuda"])
     finally:
-        smw._fn = real
+        smw._kernel = real
     launches = _launch_counts(kernel_counters)
     summary = json.loads(out.strip().splitlines()[-1])
     logged = _logged(run, "test_loss")
@@ -3042,17 +3042,17 @@ def _kernel1_shapes():
 
     @contextlib.contextmanager
     def record():
-        real = smw._kernel()
+        real = smw._kernel
 
         def recording(*args):
             key = _kernel1_key(args)
             shapes[key] = shapes.get(key, 0) + 1
             return real(*args)
-        smw._fn = recording
+        smw._kernel = recording
         try:
             yield
         finally:
-            smw._fn = real
+            smw._kernel = real
     return record, shapes
 
 

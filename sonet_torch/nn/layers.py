@@ -184,9 +184,10 @@ class BatchNorm(nn.Module):
     """BatchNorm over the trailing channel axis, with the running
     statistics as buffers and the reference's epoch momentum decay.
 
-    Training: biased batch variance, two-pass below 8192 reduced rows
-    (stable where mean^2 >> var) and one-pass E[x^2] - E[x]^2 from 8192 on
-    (one read of the input), as in the JAX package; running statistics
+    Training: biased batch variance, two-pass below ``TWO_PASS_BELOW``
+    (8192) reduced rows (stable where mean^2 >> var) and one-pass
+    E[x^2] - E[x]^2 from there on (one read of the input), as in the JAX
+    package (``ops.cuda.batchnorm_act.batch_stats``); running statistics
     ``r = (1 - m) r + m batch`` with the unbiased variance, where
     ``m = max(momentum * decay^(epoch // step), 0.01)`` from epoch 1 on when
     ``momentum_decay_step`` is set, else ``momentum``; not inside
@@ -238,34 +239,15 @@ class BatchNorm(nn.Module):
                 epoch: Optional[int] = None) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            n = math.prod(x.shape[:-1])
-            mesh_axes = ("data", "points") if self.sharded_points else ("data",)
-            ranks = math.prod(collectives.axis_size(a) for a in mesh_axes)
-            if ranks == 1:
-                mean = xf.mean(axes)
-                if n < 8192:
-                    var = (xf - mean).square().mean(axes)
-                else:
-                    var = xf.square().mean(axes) - mean.square()
-            else:
-                n *= ranks
-                if n < 8192:
-                    mean = collectives.sum_over(xf.sum(axes), mesh_axes) / n
-                    var = collectives.sum_over(
-                        (xf - mean).square().sum(axes), mesh_axes) / n
-                else:
-                    sums = collectives.sum_over(
-                        torch.stack([xf.sum(axes), xf.square().sum(axes)]),
-                        mesh_axes) / n
-                    mean = sums[0]
-                    var = sums[1] - mean.square()
+            # the sums seen by autograd: the CPU's backward needs them
+            mean, var = batchnorm_act.batch_stats(xf, self.mesh_axes,
+                                                  collectives.sum_over)
             if not recomputing():
-                self._update_running(mean, var, n, epoch)
+                self._update_running(mean, var, self._rows(x), epoch)
         else:
             mean, var = self.running_mean, self.running_var
-        y = (xf - mean) * torch.rsqrt(var + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return batchnorm_act.normalised(xf, mean, var, self.weight, self.bias,
+                                        self.eps, x.dtype)
 
     def normalise(self, y: torch.Tensor, epoch: Optional[int] = None,
                   bias: Optional[torch.Tensor] = None,
@@ -279,18 +261,26 @@ class BatchNorm(nn.Module):
     def _fused(self, x, epoch, bias, activation):
         relu = activation == "relu"
         if self.training:
-            mesh_axes = ("data", "points") if self.sharded_points else ("data",)
             out, mean, var = batchnorm_act.batchnorm_act_train(
-                x, bias, self.weight, self.bias, self.eps, relu, mesh_axes)
+                x, bias, self.weight, self.bias, self.eps, relu,
+                self.mesh_axes)
             if not recomputing():
-                n = x.numel() // x.shape[-1] * math.prod(
-                    collectives.axis_size(a) for a in mesh_axes)
-                self._update_running(mean, var, n, epoch)
+                self._update_running(mean, var, self._rows(x), epoch)
         else:
             out = batchnorm_act.batchnorm_act_eval(
                 x, bias, self.weight, self.bias, self.running_mean,
                 self.running_var, self.eps, relu)
         return out if relu else activation_fn(activation)(out)
+
+    @property
+    def mesh_axes(self) -> tuple:
+        """The mesh axes the training statistics are summed over."""
+        return ("data", "points") if self.sharded_points else ("data",)
+
+    def _rows(self, x: torch.Tensor) -> int:
+        """The rows of ``x`` over the whole mesh: the statistics' count."""
+        return math.prod(x.shape[:-1]) * math.prod(
+            collectives.axis_size(a) for a in self.mesh_axes)
 
     @torch.no_grad()
     def _update_running(self, mean, var, n, epoch):

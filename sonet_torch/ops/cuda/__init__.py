@@ -6,6 +6,12 @@ with ``ctypes``.  Libraries go to ``sonet_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of the source and the flags, so an edit
 rebuilds and an unchanged source is built once per checkout.  Nothing is
 built or loaded when this module is imported.
+
+Every wrapper under ``ops/cuda/`` reaches its kernels through the seam
+below: ``launcher`` for a typed C function that is loaded at its first
+call and whose ``cudaError`` is checked, ``DTYPE_CODE`` for the element
+type a kernel is told, and ``same_device`` for the one-device rule of
+every entry point and CUDA implementation.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
@@ -27,6 +35,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 _ptxas_log: dict[str, str] = {}
+
+# the ``dtype`` argument of every kernel that takes float32 or bf16 data
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def sources() -> list[str]:
@@ -101,3 +112,41 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib
+
+
+def launcher(source: str, symbol: str, argtypes, query: bool = False):
+    """The C function ``symbol`` of ``csrc/<source>.cu`` as a Python
+    callable: the library is built and loaded, and the function's
+    ``argtypes`` and ``int`` result declared, at the first call.  A call
+    returns the function's result; unless ``query`` is set, that result
+    is a ``cudaError_t``, and a non-zero one raises ``RuntimeError``."""
+    fn = None
+
+    def launch(*args) -> int:
+        nonlocal fn
+        if fn is None:
+            typed = getattr(load(source), symbol)
+            typed.argtypes = list(argtypes)
+            typed.restype = ctypes.c_int
+            fn = typed
+        result = fn(*args)
+        if result != 0 and not query:
+            raise RuntimeError(f"csrc/{source}.cu {symbol} failed: "
+                               f"cudaError {result}")
+        return result
+    return launch
+
+
+def same_device(op: str, **tensors) -> None:
+    """Raises ``ValueError`` naming ``op`` and the devices unless every
+    tensor given (None is skipped) is on one device, a CUDA device or the
+    CPU.  The entry points call it for a mix with the CPU or ``meta``,
+    which the dispatcher would hand to the plain or the fake version; the
+    CUDA implementations call it for calls through ``torch.ops``."""
+    devices = {name: t.device for name, t in tensors.items()
+               if t is not None}
+    kinds = set(devices.values())
+    if len(kinds) > 1 or any(d.type not in ("cpu", "cuda") for d in kinds):
+        where = ", ".join(f"{name} on {d}" for name, d in devices.items())
+        raise ValueError(f"{op}: {where}; all must be on one CUDA device "
+                         "(or all on the CPU)")

@@ -38,15 +38,13 @@ import math
 import torch
 
 from ...parallel import collectives
-from . import load
+from . import DTYPE_CODE, launcher, same_device
 
 # the variance is two-pass below this many rows (of the whole mesh),
 # one-pass E[h^2] - E[h]^2 from there on, as in the JAX package
 TWO_PASS_BELOW = 8192
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WIDTH_MULTIPLE = 8         # a 16-byte vector of bf16; two of float32
 launches = {"train": 0, "eval": 0, "backward": 0}
-_fns = None
 
 
 # ---------------------------------------------------------------------------
@@ -60,33 +58,42 @@ def _biased(y, bias):
     return y if bias is None else y + bias
 
 
+def batch_stats(xf, axes, reduce):
+    """(mean, biased variance) over the rows of the float ``xf`` (..., C)
+    and the mesh ``axes`` in effect: two-pass below ``TWO_PASS_BELOW``
+    rows of the whole mesh, one-pass from there on.  ``reduce(t, axes)``
+    sums over the ranks: ``collectives.sum_over`` where autograd must see
+    the sum, ``collectives.all_reduce`` where it need not."""
+    rows = tuple(range(xf.dim() - 1))
+    ranks = _ranks(axes)
+    n = math.prod(xf.shape[:-1]) * ranks
+    if ranks == 1:
+        mean = xf.mean(rows)
+        if n < TWO_PASS_BELOW:
+            return mean, (xf - mean).square().mean(rows)
+        return mean, xf.square().mean(rows) - mean.square()
+    if n < TWO_PASS_BELOW:
+        mean = reduce(xf.sum(rows), axes) / n
+        return mean, reduce((xf - mean).square().sum(rows), axes) / n
+    sums = reduce(torch.stack([xf.sum(rows), xf.square().sum(rows)]),
+                  axes) / n
+    return sums[0], sums[1] - sums[0].square()
+
+
+def normalised(xf, mean, var, weight, beta, eps: float, dtype):
+    """The float ``xf`` normalised with the statistics, the affine map,
+    rounded to ``dtype``."""
+    return ((xf - mean) * torch.rsqrt(var + eps) * weight + beta).to(dtype)
+
+
 def batchnorm_act_train_plain(y, bias, weight, beta, eps: float, relu: bool,
                               axes=("data",)):
     """(out, mean, var) with the batch statistics, as ``BatchNorm``'s
     training forward computes them from ``y + bias``."""
     x = _biased(y, bias)
     xf = x.float()
-    rows = tuple(range(x.dim() - 1))
-    n = math.prod(x.shape[:-1])
-    ranks = _ranks(axes)
-    if ranks == 1:
-        mean = xf.mean(rows)
-        if n < TWO_PASS_BELOW:
-            var = (xf - mean).square().mean(rows)
-        else:
-            var = xf.square().mean(rows) - mean.square()
-    else:
-        n *= ranks
-        if n < TWO_PASS_BELOW:
-            mean = collectives.all_reduce(xf.sum(rows), axes) / n
-            var = collectives.all_reduce((xf - mean).square().sum(rows),
-                                         axes) / n
-        else:
-            sums = collectives.all_reduce(
-                torch.stack([xf.sum(rows), xf.square().sum(rows)]), axes) / n
-            mean = sums[0]
-            var = sums[1] - mean.square()
-    out = ((xf - mean) * torch.rsqrt(var + eps) * weight + beta).to(x.dtype)
+    mean, var = batch_stats(xf, axes, collectives.all_reduce)
+    out = normalised(xf, mean, var, weight, beta, eps, x.dtype)
     return (torch.relu(out) if relu else out), mean, var
 
 
@@ -94,8 +101,7 @@ def batchnorm_act_eval_plain(y, bias, weight, beta, mean, var, eps: float,
                              relu: bool):
     """``BatchNorm``'s forward with the given statistics."""
     x = _biased(y, bias)
-    xf = x.float()
-    out = ((xf - mean) * torch.rsqrt(var + eps) * weight + beta).to(x.dtype)
+    out = normalised(x.float(), mean, var, weight, beta, eps, x.dtype)
     return torch.relu(out) if relu else out
 
 
@@ -129,45 +135,29 @@ def batchnorm_act_backward_plain(g, y, bias, weight, beta, mean, var,
 # ---------------------------------------------------------------------------
 # the kernels
 
-def _kernels():
-    global _fns
-    if _fns is None:
-        lib = load("batchnorm_act")
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        sig = {
-            "sonet_batchnorm_partials": [i, i, i, i],
-            "sonet_batchnorm_stats": [p, i, p, i, i, p, p, f, p, p, i, p],
-            "sonet_batchnorm_apply": [p, i, p, i, i, p, p, p, p, f, i, p, i,
-                                      p],
-            "sonet_batchnorm_backward_sums": [p, p, i, p, i, i, p, p, p, p, f,
-                                              i, p, p, p, i, p],
-            "sonet_batchnorm_backward_dx": [p, p, i, p, i, i, p, p, p, p, f, i,
-                                            p, p, f, p, i, p],
-        }
-        fns = {}
-        for name, args in sig.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-            fns[name[len("sonet_batchnorm_"):]] = fn
-        _fns = fns
-    return _fns
-
-
-def _call(name, *args):
-    err = _kernels()[name](*args)
-    if err != 0:
-        raise RuntimeError(f"batchnorm_act {name} kernel launch failed: "
-                           f"cudaError {err}")
+_p, _i, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_partials_of = launcher("batchnorm_act", "sonet_batchnorm_partials",
+                        [_i, _i, _i, _i], query=True)
+_stats_kernel = launcher("batchnorm_act", "sonet_batchnorm_stats",
+                         [_p, _i, _p, _i, _i, _p, _p, _f, _p, _p, _i, _p])
+_apply_kernel = launcher("batchnorm_act", "sonet_batchnorm_apply",
+                         [_p, _i, _p, _i, _i, _p, _p, _p, _p, _f, _i, _p, _i,
+                          _p])
+_backward_sums = launcher("batchnorm_act", "sonet_batchnorm_backward_sums",
+                          [_p, _p, _i, _p, _i, _i, _p, _p, _p, _p, _f, _i, _p,
+                           _p, _p, _i, _p])
+_backward_dx = launcher("batchnorm_act", "sonet_batchnorm_backward_dx",
+                        [_p, _p, _i, _p, _i, _i, _p, _p, _p, _p, _f, _i, _p,
+                         _p, _f, _p, _i, _p])
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check(y, bias, vectors):
+def _check(y, bias, weight, beta, mean=None, var=None):
     """Raises on what the kernels do not take."""
-    if y.dtype not in _DTYPE_CODE:
+    if y.dtype not in DTYPE_CODE:
         raise TypeError(f"batchnorm_act: y dtype {y.dtype}, want float32 "
                         "or bfloat16")
     C = y.shape[-1] if y.dim() else 0
@@ -186,19 +176,21 @@ def _check(y, bias, vectors):
                              or not bias.is_contiguous()):
         raise ValueError(f"batchnorm_act: bias {tuple(bias.shape)} "
                          f"{bias.dtype}; want ({C},) {y.dtype}, contiguous")
-    for v in vectors:
-        if (v.dtype != torch.float32 or tuple(v.shape) != (C,)
-                or not v.is_contiguous()):
+    for v in (weight, beta, mean, var):
+        if v is not None and (v.dtype != torch.float32
+                              or tuple(v.shape) != (C,)
+                              or not v.is_contiguous()):
             raise ValueError(f"batchnorm_act: a per-channel vector "
                              f"{tuple(v.shape)} {v.dtype}; want ({C},) "
                              "float32, contiguous")
-    _one_device(y, bias, *vectors)
+    same_device("batchnorm_act", y=y, bias=bias, weight=weight, beta=beta,
+                mean=mean, var=var)
 
 
 def _partials(y):
     C = y.shape[-1]
     R = y.numel() // C
-    G = _kernels()["partials"](R, C, _DTYPE_CODE[y.dtype], y.device.index)
+    G = _partials_of(R, C, DTYPE_CODE[y.dtype], y.device.index)
     return torch.empty((G, 2, C), dtype=torch.float32, device=y.device)
 
 
@@ -206,26 +198,27 @@ def _head(y):
     """(R, C, dtype code, device index, stream) of a launch on ``y``."""
     C = y.shape[-1]
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    return (y.numel() // C, C, _DTYPE_CODE[y.dtype], y.device.index, stream)
+    return (y.numel() // C, C, DTYPE_CODE[y.dtype], y.device.index, stream)
 
 
 def _stats(y, bias, center, part, n, out0, out1):
     R, C, code, dev, stream = _head(y)
-    _call("stats", y.data_ptr(), code, _ptr(bias), R, C, _ptr(center),
-          part.data_ptr(), float(n), _ptr(out0), out1.data_ptr(), dev, stream)
+    _stats_kernel(y.data_ptr(), code, _ptr(bias), R, C, _ptr(center),
+                  part.data_ptr(), float(n), _ptr(out0), out1.data_ptr(), dev,
+                  stream)
 
 
 def _apply(y, bias, weight, beta, mean, var, eps, relu):
     R, C, code, dev, stream = _head(y)
     out = torch.empty_like(y)
-    _call("apply", y.data_ptr(), code, _ptr(bias), R, C, mean.data_ptr(),
-          var.data_ptr(), weight.data_ptr(), beta.data_ptr(), float(eps),
-          int(relu), out.data_ptr(), dev, stream)
+    _apply_kernel(y.data_ptr(), code, _ptr(bias), R, C, mean.data_ptr(),
+                  var.data_ptr(), weight.data_ptr(), beta.data_ptr(),
+                  float(eps), int(relu), out.data_ptr(), dev, stream)
     return out
 
 
 def _train_cuda(y, bias, weight, beta, eps, relu, axes):
-    _check(y, bias, (weight, beta))
+    _check(y, bias, weight, beta)
     C = y.shape[-1]
     ranks = _ranks(axes)
     n = y.numel() // C * ranks
@@ -253,7 +246,7 @@ def _train_cuda(y, bias, weight, beta, eps, relu, axes):
 
 
 def _eval_cuda(y, bias, weight, beta, mean, var, eps, relu):
-    _check(y, bias, (weight, beta, mean, var))
+    _check(y, bias, weight, beta, mean, var)
     out = _apply(y, bias, weight, beta, mean, var, eps, relu)
     launches["eval"] += 1
     return out
@@ -261,7 +254,7 @@ def _eval_cuda(y, bias, weight, beta, mean, var, eps, relu):
 
 def _backward_cuda(g, y, bias, weight, beta, mean, var, eps, relu, train,
                    axes):
-    _check(y, bias, (weight, beta, mean, var))
+    _check(y, bias, weight, beta, mean, var)
     g = g.contiguous()
     if g.dtype != y.dtype or g.shape != y.shape:
         raise ValueError(f"batchnorm_act: cotangent {tuple(g.shape)} "
@@ -270,10 +263,10 @@ def _backward_cuda(g, y, bias, weight, beta, mean, var, eps, relu, train,
     part = _partials(y)
     dbeta = torch.empty(C, dtype=torch.float32, device=y.device)
     dweight = torch.empty_like(dbeta)
-    _call("backward_sums", g.data_ptr(), y.data_ptr(), code, _ptr(bias), R,
-          C, mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
-          beta.data_ptr(), float(eps), int(relu), part.data_ptr(),
-          dbeta.data_ptr(), dweight.data_ptr(), dev, stream)
+    _backward_sums(g.data_ptr(), y.data_ptr(), code, _ptr(bias), R, C,
+                   mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
+                   beta.data_ptr(), float(eps), int(relu), part.data_ptr(),
+                   dbeta.data_ptr(), dweight.data_ptr(), dev, stream)
     sum_gz, sum_gzx, n = dbeta, dweight, 0
     if train:
         ranks = _ranks(axes)
@@ -282,10 +275,10 @@ def _backward_cuda(g, y, bias, weight, beta, mean, var, eps, relu, train,
             tot = collectives.all_reduce(torch.stack([dbeta, dweight]), axes)
             sum_gz, sum_gzx = tot[0], tot[1]
     dy = torch.empty_like(y)
-    _call("backward_dx", g.data_ptr(), y.data_ptr(), code, _ptr(bias), R, C,
-          mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
-          beta.data_ptr(), float(eps), int(relu), sum_gz.data_ptr(),
-          sum_gzx.data_ptr(), float(n), dy.data_ptr(), dev, stream)
+    _backward_dx(g.data_ptr(), y.data_ptr(), code, _ptr(bias), R, C,
+                 mean.data_ptr(), var.data_ptr(), weight.data_ptr(),
+                 beta.data_ptr(), float(eps), int(relu), sum_gz.data_ptr(),
+                 sum_gzx.data_ptr(), float(n), dy.data_ptr(), dev, stream)
     launches["backward"] += 1
     return dy, dweight, dbeta
 
@@ -386,23 +379,13 @@ _eval_op.register_autograd(
 # ---------------------------------------------------------------------------
 # checked entry points
 
-def _one_device(y, bias, *vectors):
-    """Raises unless every tensor is on ``y``'s device, one CUDA device or
-    the CPU.  One check for two callers: the CUDA implementations
-    (``_check``), for calls through ``torch.ops`` and autograd, and the
-    entry points, for a mix with the CPU or ``meta``, which the
-    dispatcher hands to the plain or the fake version, never to
-    ``_check``."""
-    dev = y.device
-    others = {t.device for t in (bias, *vectors) if t is not None}
-    if dev.type not in ("cpu", "cuda") or others - {dev}:
-        raise ValueError(f"batchnorm_act: y on {dev}, parameters on "
-                         f"{sorted(str(d) for d in others)}; all must be on "
-                         "one CUDA device (or all on the CPU)")
-
-
-def _devices(y, bias, *vectors):
-    _one_device(y, bias, *vectors)
+def _devices(y, bias, weight, beta, mean=None, var=None):
+    """The entry points' checks: one device for every tensor (``_check``
+    has the same check, but the dispatcher hands a mix with the CPU or
+    ``meta`` to the plain or the fake version, never to ``_check``), and
+    no gradient asked of the bias."""
+    same_device("batchnorm_act", y=y, bias=bias, weight=weight, beta=beta,
+                mean=mean, var=var)
     if bias is not None and bias.requires_grad and torch.is_grad_enabled():
         raise ValueError("batchnorm_act: the bias gets no gradient here; "
                          "pass it detached (Dense.stop_bias_grad)")

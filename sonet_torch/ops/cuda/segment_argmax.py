@@ -16,11 +16,13 @@ import ctypes
 
 import torch
 
-from . import load
+from . import launcher, same_device
 
 NEG = -3.0e38
 _BLOCK_M = 8          # nodes per pass of the plain version
-_fn = None
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_kernel = launcher("segment_argmax", "sonet_segment_argmax",
+                   [_p, _p, _p, _p, _i, _i, _i, _i, _p])
 
 
 def segment_argmax_plain(data: torch.Tensor, seg_ids: torch.Tensor,
@@ -50,18 +52,6 @@ def segment_argmax_plain(data: torch.Tensor, seg_ids: torch.Tensor,
     return out
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load("segment_argmax").sonet_segment_argmax
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def segment_argmax(data: torch.Tensor, seg_ids: torch.Tensor,
                    num_segments: int) -> torch.Tensor:
     """int32 (B, M, C) index of the first maximum per node and channel;
@@ -70,12 +60,9 @@ def segment_argmax(data: torch.Tensor, seg_ids: torch.Tensor,
     data (B, N, C) float32, contiguous; seg_ids (B, N) int32, sorted for
     speed, any order for correctness.  Not differentiable.
     """
-    if data.device.type == "cpu" and seg_ids.device.type == "cpu":
+    same_device("segment_argmax", data=data, seg_ids=seg_ids)
+    if data.device.type == "cpu":
         return segment_argmax_plain(data, seg_ids, num_segments)
-    if data.device.type != "cuda" or seg_ids.device != data.device:
-        raise ValueError(f"segment_argmax: data on {data.device} and seg_ids "
-                         f"on {seg_ids.device}; both must be on one CUDA "
-                         "device (or both on the CPU)")
     if data.dtype != torch.float32:
         raise TypeError(f"segment_argmax: data dtype {data.dtype}, want "
                         "float32")
@@ -95,14 +82,10 @@ def segment_argmax(data: torch.Tensor, seg_ids: torch.Tensor,
                          "the kernel's range")
     keys = torch.empty((B, M, C), dtype=torch.int64, device=data.device)
     out = torch.empty((B, M, C), dtype=torch.int32, device=data.device)
-    fn = _kernel()
     with torch.cuda.device(data.device):
         stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = fn(data.data_ptr(), seg_ids.data_ptr(), keys.data_ptr(),
-                 out.data_ptr(), B, N, C, M, stream)
-    if err != 0:
-        raise RuntimeError(f"segment_argmax kernel launch failed: "
-                           f"cudaError {err}")
+        _kernel(data.data_ptr(), seg_ids.data_ptr(), keys.data_ptr(),
+                out.data_ptr(), B, N, C, M, stream)
     segment_argmax.launches += 1
     return out
 

@@ -27,14 +27,15 @@ import ctypes
 
 import torch
 
-from ..segment import segment_counts
-from . import load
+from ..segment import fill_empty, segment_counts
+from . import DTYPE_CODE, launcher, same_device
 
 NEG = -3.0e38
 _BLOCK_M = 8          # nodes per pass of the plain version
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _BULK_ROW_BYTES = (256, 2048)     # a row the bulk kernel takes, in bytes
-_fn = None
+_p, _i = ctypes.c_void_p, ctypes.c_int
+_kernel = launcher("segment_max_window", "sonet_segment_max_window",
+                   [_p, _i, _p, _p, _i, _i, _i, _i, _i, _p])
 
 
 def windowed_vals_plain(data: torch.Tensor, seg_ids: torch.Tensor,
@@ -72,33 +73,16 @@ def kernel_path(data: torch.Tensor) -> str:
     return "bulk" if aligned and lo <= row <= hi else "direct"
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = load("segment_max_window").sonet_segment_max_window
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def windowed_vals(data: torch.Tensor, seg_ids: torch.Tensor,
                   num_segments: int) -> torch.Tensor:
     """f32 (B, M, C) per-node maxima, empty nodes at -3e38 (callers patch
-    empties; see ``segment_max_windowed`` and ``ops.segment_fast``).
+    empties with ``ops.segment.fill_empty``).
 
     data (B, N, C) bf16 or f32, contiguous; seg_ids (B, N) int32, sorted
     for speed, any order for correctness.  Both on the CPU (the plain
     version) or both on one CUDA device (the kernel).
     """
-    dev, ids_dev = data.device, seg_ids.device
-    if not (dev == ids_dev and dev.type in ("cpu", "cuda")):
-        raise ValueError(f"windowed_vals: data on {dev} and seg_ids on "
-                         f"{ids_dev}; both must be on one CUDA device (or "
-                         "both on the CPU)")
+    same_device("windowed_vals", data=data, seg_ids=seg_ids)
     return torch.ops.sonet_torch.windowed_vals(data, seg_ids,
                                                int(num_segments))
 
@@ -121,7 +105,7 @@ def _(data, seg_ids, num_segments):
 
 @_op.register_kernel("cuda")
 def _(data, seg_ids, num_segments):
-    if data.dtype not in _DTYPE_CODE:
+    if data.dtype not in DTYPE_CODE:
         raise TypeError(f"windowed_vals: data dtype {data.dtype}, want "
                         "float32 or bfloat16")
     if seg_ids.dtype != torch.int32:
@@ -133,9 +117,7 @@ def _(data, seg_ids, num_segments):
                          "and (B, N)")
     if not (data.is_contiguous() and seg_ids.is_contiguous()):
         raise ValueError("windowed_vals: data and seg_ids must be contiguous")
-    if seg_ids.device != data.device:
-        raise ValueError(f"windowed_vals: data on {data.device} and seg_ids "
-                         f"on {seg_ids.device}; want one CUDA device")
+    same_device("windowed_vals", data=data, seg_ids=seg_ids)
     B, N, C = data.shape
     M = int(num_segments)
     # the kernels index rows (B * N) and channels with 32-bit ints
@@ -145,12 +127,8 @@ def _(data, seg_ids, num_segments):
     out = torch.empty((B, M, C), dtype=torch.float32, device=data.device)
     # the C function switches to the tensors' device for its launches
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    err = _kernel()(data.data_ptr(), _DTYPE_CODE[data.dtype],
-                    seg_ids.data_ptr(), out.data_ptr(), B, N, C, M,
-                    data.device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"segment_max_window kernel launch failed: "
-                           f"cudaError {err}")
+    _kernel(data.data_ptr(), DTYPE_CODE[data.dtype], seg_ids.data_ptr(),
+            out.data_ptr(), B, N, C, M, data.device.index, stream)
     windowed_vals.launches += 1
     return out
 
@@ -163,5 +141,4 @@ def segment_max_windowed(data: torch.Tensor, seg_ids: torch.Tensor,
     vals = windowed_vals(data, seg_ids, num_segments)
     if counts is None:
         counts = segment_counts(seg_ids, num_segments)
-    empty = (counts == 0)[..., None]
-    return torch.where(empty, data[:, 0:1, :].float(), vals).to(data.dtype)
+    return fill_empty(vals, counts, data[:, 0:1], data.dtype)

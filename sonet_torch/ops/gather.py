@@ -23,6 +23,16 @@ def knn_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return data[batch, idx.long()]
 
 
+def take_rows(table: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
+    """table (B, M, C) rows by id -> (B, N, C); an id outside ``[0, M)``
+    reads a zero row, as its zero one-hot row does in the JAX package."""
+    M, C = table.shape[1], table.shape[2]
+    inside = (seg_ids >= 0) & (seg_ids < M)
+    idx = torch.where(inside, seg_ids, 0).long()[..., None].expand(-1, -1, C)
+    rows = torch.gather(table, 1, idx)
+    return rows * inside[..., None].to(rows.dtype)
+
+
 def _take_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, N, C) rows by idx (B, N') -> (B, N', C)."""
     return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[2]))

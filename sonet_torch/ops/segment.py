@@ -6,14 +6,17 @@ as the reference gathers with ``gather_index * mask_row_max``, and the
 gradient of that gather flows back to point 0.
 
 ``segment_max`` (also named ``segment_max_scatter``, as in the JAX
-package) is a ``torch.autograd.Function`` whose backward is
-``route_max_grad``: each output cotangent goes back to the winning
-point(s) through a winner-equality mask.  On exact ties the cotangent is
-split equally among the winners (sum-preserving), as in the JAX package.
-``segment_max_fast`` (``ops/segment_fast.py``) shares the backward.  Its
-plain version, ``route_max_grad_plain``, routes through one-hot products
-as the JAX package does; it is what the CPU runs, and the CUDA kernels of
-``csrc/segment_max_grad.cu`` compute the same bits on a card.
+package) and ``segment_max_fast`` (``ops/segment_fast.py``) are one
+``torch.autograd.Function``, ``_NodeMax``, given another reduction:
+``scatter_max`` here, the kernel's ``windowed_vals`` there.  Its backward
+is ``route_max_grad``, the operator ``sonet_torch::segment_max_grad``
+(``ops/cuda/segment_max_grad.py``): each output cotangent goes back to
+the winning point(s) through a winner-equality mask.  On exact ties the
+cotangent is split equally among the winners (sum-preserving), as in the
+JAX package.  Its plain version, ``route_max_grad_plain``, routes through
+one-hot products as the JAX package does; it is what the CPU runs, and
+the CUDA kernels of ``csrc/segment_max_grad.cu`` compute the same bits on
+a card.
 
 ``segment_max_onehot``, ``segment_sum_onehot`` and ``segment_mean_onehot``
 are the JAX package's one-hot formulations, kept as oracles (no path
@@ -25,7 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from .pairwise import one_hot
+from ..parallel import collectives
+from .cuda.segment_max_grad import segment_max_grad as route_max_grad
 
 
 def segment_counts(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -36,113 +40,33 @@ def segment_counts(seg_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return (seg_ids[..., None] == classes).sum(1, dtype=torch.int32)
 
 
-def _take_rows(table: torch.Tensor, seg_ids: torch.Tensor) -> torch.Tensor:
-    """table (B, M, C) rows by id -> (B, N, C); an id outside ``[0, M)``
-    reads a zero row, as its zero one-hot row does in the JAX package."""
-    M, C = table.shape[1], table.shape[2]
-    inside = (seg_ids >= 0) & (seg_ids < M)
-    idx = torch.where(inside, seg_ids, 0).long()[..., None].expand(-1, -1, C)
-    rows = torch.gather(table, 1, idx)
-    return rows * inside[..., None].to(rows.dtype)
-
-
-def route_max_grad(data: torch.Tensor, seg_ids: torch.Tensor,
-                   out: torch.Tensor, counts: torch.Tensor, g: torch.Tensor,
-                   point0_idx: torch.Tensor | None = None,
-                   tie_axes=()) -> torch.Tensor:
-    """Gradient of a segment max with respect to ``data``: the operator
-    ``sonet_torch::segment_max_grad`` (``ops/cuda/segment_max_grad.py``),
-    which runs ``route_max_grad_plain`` on the CPU and the kernels of
-    ``csrc/segment_max_grad.cu`` on a CUDA device.  ``tie_axes``: the mesh
-    axes over which the tie counts are summed (``reduce_ties`` below)."""
-    from .cuda.segment_max_grad import segment_max_grad
-    return segment_max_grad(data, seg_ids, out, counts, g, point0_idx,
-                            tie_axes)
-
-
-def route_max_grad_plain(data: torch.Tensor, seg_ids: torch.Tensor,
-                         out: torch.Tensor, counts: torch.Tensor,
-                         g: torch.Tensor,
-                         point0_idx: torch.Tensor | None = None,
-                         reduce_ties=None) -> torch.Tensor:
-    """Gradient of a segment max with respect to ``data`` (B, N, C), given
-    the forward's output ``out`` (B, M, C) in ``data.dtype``, the node
-    ``counts`` (B, M) and the output cotangent ``g`` (B, M, C).
-
-    The winner mask is ``data == out`` at each point's node: exact, since
-    ``out`` holds values taken from ``data``.  Ties split the cotangent
-    equally (tie counts rounded before the division).  An empty node
-    forwarded the feature at ``point0_idx`` (B,) (default position 0), so
-    its cotangent goes there.  bf16 data routes through bf16 one-hot
-    products (exact: one 1.0 per row), float32 data through gathers.
-
-    Under a points mesh (``ops.segment_fast.windowed_vals_sharded``)
-    ``data`` is this rank's part of the points and ``reduce_ties`` sums
-    the (B, M, C) tie counts over the ``points`` ranks, since ties split
-    the cotangent over the whole node, not over this rank's slice.
-    """
-    M = out.shape[1]
-    bf16 = data.dtype == torch.bfloat16
-    if bf16:
-        onehot = one_hot(seg_ids, M, torch.bfloat16)          # (B, N, M)
-        out_pp = torch.bmm(onehot, out.to(torch.bfloat16))
-    else:
-        onehot = one_hot(seg_ids, M, torch.float32)
-        out_pp = _take_rows(out, seg_ids)
-    # 0/1 entries are exact in bf16, halving the (B, N, C) mask traffic
-    eq = (data == out_pp).to(data.dtype)
-    # tie counts per (node, channel), summed in float32 and rounded so
-    # that the division below is exact
-    ties = torch.round(torch.bmm(onehot.float().transpose(1, 2), eq.float()))
-    if reduce_ties is not None:
-        ties = reduce_ties(ties)
-    empty = (counts == 0)[..., None]                          # (B, M, 1)
-    g = g.float()
-    # divide per node before routing: one (B, N, C) product, not two
-    ratio = torch.where(empty, 0.0, g) / torch.clamp_min(ties, 1.0)
-    if bf16:
-        ratio_pp = torch.bmm(onehot, ratio.to(torch.bfloat16))  # bf16 out
-    else:
-        ratio_pp = _take_rows(ratio, seg_ids)
-    grad = eq * ratio_pp
-    # empty nodes forwarded the point-0 feature: their cotangent goes there
-    g_empty = torch.where(empty, g, 0.0).sum(1).to(grad.dtype)  # (B, C)
+def point0_rows(data: torch.Tensor,
+                point0_idx: torch.Tensor | None) -> torch.Tensor:
+    """(B, 1, C): the row of ``data`` (B, N, C) each cloud's empty nodes
+    take, at ``point0_idx`` (B,) (position 0 when None)."""
+    if point0_idx is None:
+        return data[:, 0:1]
     batch = torch.arange(data.shape[0], device=data.device)
-    p0 = (torch.zeros_like(batch) if point0_idx is None
-          else point0_idx.long())
-    grad[batch, p0] += g_empty
-    return grad.to(data.dtype)
+    return data[batch, point0_idx.long()][:, None]
 
 
-def _empty_patch(out: torch.Tensor, data: torch.Tensor,
-                 counts: torch.Tensor) -> torch.Tensor:
-    """An empty node -> the feature of point 0."""
-    return torch.where((counts == 0)[..., None], data[:, 0:1, :], out)
+def fill_empty(vals: torch.Tensor, counts: torch.Tensor, p0: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The per-node maxima ``vals`` (B, M, C) with each empty node's row
+    (``counts`` (B, M) zero) replaced by ``p0`` (B, 1, C), in ``dtype``."""
+    empty = (counts == 0)[..., None]
+    return torch.where(empty, p0.to(vals.dtype), vals).to(dtype)
 
 
-def _segment_max_forward(data, seg_ids, num_segments):
-    """Scatter max (B, M, C) in ``data.dtype``, empty node -> data[:, 0],
-    and the int32 counts."""
+def scatter_max(data: torch.Tensor, seg_ids: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Per-node maxima (B, M, C) by scatter in ``data.dtype``; an empty
+    node reads 0, an all -inf node -inf, as in the JAX package's
+    ``segment_max_scatter``."""
     B, N, C = data.shape
     idx = seg_ids.long()[..., None].expand(B, N, C)
     out = torch.zeros(B, num_segments, C, dtype=data.dtype, device=data.device)
-    # include_self=False: empty nodes keep the 0 they were cleared to
-    out = out.scatter_reduce(1, idx, data, reduce="amax", include_self=False)
-    counts = segment_counts(seg_ids, num_segments)
-    return _empty_patch(out, data, counts), counts
-
-
-class _SegmentMax(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, data, seg_ids, num_segments):
-        out, counts = _segment_max_forward(data, seg_ids, num_segments)
-        ctx.save_for_backward(data, seg_ids, out, counts)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        data, seg_ids, out, counts = ctx.saved_tensors
-        return route_max_grad(data, seg_ids, out, counts, g), None, None
+    return out.scatter_reduce(1, idx, data, reduce="amax", include_self=False)
 
 
 def scatter_vals(data: torch.Tensor, seg_ids: torch.Tensor,
@@ -157,6 +81,30 @@ def scatter_vals(data: torch.Tensor, seg_ids: torch.Tensor,
                               include_self=True)
 
 
+class _NodeMax(torch.autograd.Function):
+    """Node pooling on one process: ``vals(data, seg_ids, M)`` makes the
+    per-node maxima (``scatter_max`` or the kernel's ``windowed_vals``),
+    empty nodes take ``point0_rows`` (``counts`` made here when None),
+    and the backward is ``route_max_grad``."""
+
+    @staticmethod
+    def forward(ctx, data, seg_ids, counts, point0_idx, num_segments, vals):
+        if counts is None:
+            counts = segment_counts(seg_ids, num_segments)
+        out = fill_empty(vals(data, seg_ids, num_segments), counts,
+                         point0_rows(data, point0_idx), data.dtype)
+        ctx.save_for_backward(data, seg_ids, counts, point0_idx, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        data, seg_ids, counts, point0_idx, out = ctx.saved_tensors
+        grad = route_max_grad(data, seg_ids, out, counts, g,
+                              point0_idx=point0_idx)
+        # ids, counts and point0_idx get no gradient
+        return grad, None, None, None, None, None
+
+
 def segment_max(data: torch.Tensor, seg_ids: torch.Tensor,
                 num_segments: int, *, counts: torch.Tensor | None = None
                 ) -> torch.Tensor:
@@ -167,12 +115,12 @@ def segment_max(data: torch.Tensor, seg_ids: torch.Tensor,
     the global (B, M) occupancy, and the maxima are combined over the
     ranks as ``ops.segment_fast.segment_max_fast`` combines its kernel's
     (``scatter_vals`` in the kernel's place)."""
-    from ..parallel import collectives
     if collectives.axis_size("points") > 1:
         from .segment_fast import segment_max_sharded
         return segment_max_sharded(data, seg_ids, num_segments, counts,
                                    None, scatter_vals)
-    return _SegmentMax.apply(data, seg_ids, num_segments)
+    return _NodeMax.apply(data, seg_ids, counts, None, num_segments,
+                          scatter_max)
 
 
 segment_max_scatter = segment_max
@@ -197,7 +145,8 @@ def segment_max_onehot(data: torch.Tensor, seg_ids: torch.Tensor,
         masked = torch.where((ids == nodes)[..., None], data[:, :, None, :],
                              -1e10)
         blocks.append(masked.amax(1))
-    return _empty_patch(torch.cat(blocks, 1)[:, :M], data, counts)
+    return fill_empty(torch.cat(blocks, 1)[:, :M], counts, data[:, 0:1],
+                      data.dtype)
 
 
 def segment_sum_onehot(data: torch.Tensor, onehot: torch.Tensor

@@ -5,9 +5,10 @@ package's ``ops/segment_fast.py``).
 The encoder sorts the stacked points by node once per forward; the
 kernel (``ops/cuda/segment_max_window.py``) reduces the sorted rows to
 per-node maxima.  The kernel fills its output through a raw pointer, so
-autograd cannot see through it: ``segment_max_fast`` is a
-``torch.autograd.Function`` whose backward is ``route_max_grad``
-(``ops/segment.py``), as the JAX package's ``custom_vjp`` is.  On the CPU
+autograd cannot see through it: ``segment_max_fast`` is the
+``torch.autograd.Function`` of ``segment_max`` (``ops/segment.py``,
+``_NodeMax``) with the kernel as its reduction, and its backward is
+``route_max_grad``, as the JAX package's ``custom_vjp`` is.  On the CPU
 the same Function runs with the kernel's plain version in the forward, so
 the CPU tests exercise the backward the card runs.
 
@@ -34,7 +35,8 @@ import torch.distributed as dist
 
 from ..parallel import collectives
 from .cuda.segment_max_window import windowed_vals
-from .segment import route_max_grad, segment_counts
+from .segment import (_NodeMax, fill_empty, point0_rows, route_max_grad,
+                      segment_counts)
 
 
 def windowed_vals_sharded(data: torch.Tensor, seg_ids: torch.Tensor,
@@ -79,36 +81,9 @@ def segment_max_sharded(data, seg_ids, num_segments, counts, point0_idx,
         counts = collectives.reduce_points(
             segment_counts(seg_ids, num_segments))
     vals = _PointsMax.apply(data, seg_ids, counts, num_segments, local_vals)
-    batch = torch.arange(data.shape[0], device=data.device)
-    p0 = (data[:, 0] if point0_idx is None
-          else data[batch, point0_idx.long()])
     # point 0 is points rank 0's; the others' rows are replaced
-    p0 = collectives.broadcast_points0(p0.float())[:, None, :]
-    empty = (counts == 0)[..., None]
-    return torch.where(empty, p0, vals).to(data.dtype)
-
-
-class _SegmentMaxFast(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, data, seg_ids, counts, point0_idx, num_segments):
-        vals = windowed_vals(data, seg_ids, num_segments)  # f32, empties -3e38
-        empty = (counts == 0)[..., None]                    # (B, M, 1)
-        if point0_idx is None:
-            p0 = data[:, 0:1, :]
-        else:
-            batch = torch.arange(data.shape[0], device=data.device)
-            p0 = data[batch, point0_idx.long()][:, None, :]
-        out = torch.where(empty, p0.float(), vals).to(data.dtype)
-        ctx.save_for_backward(data, seg_ids, counts, point0_idx, out)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        data, seg_ids, counts, point0_idx, out = ctx.saved_tensors
-        grad = route_max_grad(data, seg_ids, out, counts, g,
-                              point0_idx=point0_idx)
-        # ids, counts and point0_idx get no gradient
-        return grad, None, None, None, None
+    p0 = collectives.broadcast_points0(point0_rows(data, point0_idx).float())
+    return fill_empty(vals, counts, p0, data.dtype)
 
 
 def segment_max_fast(data: torch.Tensor, seg_ids: torch.Tensor,
@@ -129,7 +104,5 @@ def segment_max_fast(data: torch.Tensor, seg_ids: torch.Tensor,
     if collectives.axis_size("points") > 1:
         return segment_max_sharded(data, seg_ids, num_segments, counts,
                                    point0_idx)
-    if counts is None:
-        counts = segment_counts(seg_ids, num_segments)
-    return _SegmentMaxFast.apply(data, seg_ids, counts, point0_idx,
-                                 num_segments)
+    return _NodeMax.apply(data, seg_ids, counts, point0_idx, num_segments,
+                          windowed_vals)

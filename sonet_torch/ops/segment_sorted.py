@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from .pairwise import one_hot
-from .segment import _take_rows
+from .gather import take_rows
 
 
 def _segmented_scan_max(ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -73,14 +73,14 @@ class _SegmentMaxSorted(torch.autograd.Function):
     def backward(ctx, g):
         data, seg_ids, out, empty = ctx.saved_tensors
         M = out.shape[1]
-        out_pp = _take_rows(out, seg_ids)                 # (B, N, C)
-        g_pp = _take_rows(torch.where(empty, 0.0, g), seg_ids)
+        out_pp = take_rows(out, seg_ids)                 # (B, N, C)
+        g_pp = take_rows(torch.where(empty, 0.0, g), seg_ids)
         eq = (data == out_pp).to(data.dtype)              # the winners
         # tie counts per (node, channel): exact 0/1 products, f32 sums
         ties = torch.bmm(one_hot(seg_ids, M, torch.float32).transpose(1, 2),
                          eq.float())
         grad = g_pp.float() * eq.float() / torch.clamp_min(
-            _take_rows(ties, seg_ids), 1.0)
+            take_rows(ties, seg_ids), 1.0)
         # an empty node forwarded point 0's feature: its cotangent goes there
         grad[:, 0, :] += torch.where(empty, g, 0.0).sum(1).float()
         return grad.to(data.dtype), None, None

@@ -865,9 +865,9 @@ def test_windowed_vals_op_equals_the_ctypes_launch(cuda_device):
                                    device=cuda_device, dtype=torch.int32),
                      dim=1).values
     out = torch.empty((2, 64, 384), dtype=torch.float32, device=cuda_device)
-    err = smw._kernel()(data.data_ptr(), 1, ids.data_ptr(), out.data_ptr(),
-                        2, 3000, 384, 64, cuda_device.index or 0,
-                        torch.cuda.current_stream().cuda_stream)
+    err = smw._kernel(data.data_ptr(), 1, ids.data_ptr(), out.data_ptr(),
+                      2, 3000, 384, 64, cuda_device.index or 0,
+                      torch.cuda.current_stream().cuda_stream)
     assert err == 0
     before = smw.windowed_vals.launches
     got = torch.ops.sonet_torch.windowed_vals(data, ids, 64)
@@ -1373,7 +1373,7 @@ def _pool_grad_both(data, ids, out, counts, g, point0_idx=None):
     got = smg.segment_max_grad(data, ids, out, counts, g, point0_idx)
     torch.cuda.synchronize()
     assert smg.segment_max_grad.launches == before + 1
-    want = seg.route_max_grad_plain(data, ids, out, counts, g, point0_idx)
+    want = smg.route_max_grad_plain(data, ids, out, counts, g, point0_idx)
     return got, want
 
 
@@ -1464,14 +1464,13 @@ def test_segment_max_grad_engages_once_a_captured_modelnet40_step(
     capture) and in no replay; the eager step's and the replayed
     step's gradient each equal the plain version's on their inputs, and
     the replayed one equals the kernels' eager call on the same inputs."""
-    from sonet_torch.ops import segment_fast
     from sonet_torch.train.graphs import StepGraph
     cfg = config.modelnet40().replace(dropout=0.0)
     state = train.init_state(cfg, device=cuda_device, seed=0)
     train.state.set_capturable(state.optimizer, True)
     step, _ = train.make_steps(cfg, 10)
     batch = _full_batch(cfg, cuda_device)
-    seen, real = [], segment_fast.route_max_grad
+    seen, real = [], seg.route_max_grad
 
     def recorded(*a, **k):
         grad = real(*a, **k)
@@ -1479,7 +1478,7 @@ def test_segment_max_grad_engages_once_a_captured_modelnet40_step(
         # and an older graph's nodes break the next capture
         seen.append(([t.detach() for t in a], k, grad.detach()))
         return grad
-    monkeypatch.setattr(segment_fast, "route_max_grad", recorded)
+    monkeypatch.setattr(seg, "route_max_grad", recorded)
     restore = train.state.snapshot(state)
     launches0, calls0 = (smg.segment_max_grad.launches,
                          smw.windowed_vals.launches)
@@ -1502,7 +1501,7 @@ def test_segment_max_grad_engages_once_a_captured_modelnet40_step(
     for inputs, grad in ((eager_in, eager_grad),
                          (captured_in, captured_grad)):
         data, ids, out, counts, g = inputs
-        want = seg.route_max_grad_plain(data, ids, out, counts, g, p0)
+        want = smg.route_max_grad_plain(data, ids, out, counts, g, p0)
         assert not chip_smoke.pool_grad_mismatch(torch, grad, want, counts,
                                                  g, p0)
     # the forward is the same kernels on the same inputs

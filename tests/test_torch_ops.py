@@ -21,6 +21,7 @@ from sonet_tpu.ops.pallas.segment_max_window import (
 from sonet_tpu.ops.segment import route_max_grad as j_route_max_grad
 from sonet_tpu.ops.segment_fast import segment_max_fast as j_segment_max_fast
 from sonet_torch import ops as tops
+from sonet_torch.ops import segment as tsegment
 from sonet_torch.ops.cuda import segment_argmax as tsam
 from sonet_torch.ops.cuda import segment_max_window as tsmw
 
@@ -442,6 +443,56 @@ def test_segment_max_fast_gradient_matches_jax(dtype):
     for b in range(2):
         p = int(np.nonzero(ids[b] == 2)[0][0])
         np.testing.assert_array_equal(got[b, p], got[b, p + 1])
+
+
+@pytest.mark.parametrize("point0", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_and_kernel_pooling_are_one_function(dtype, point0):
+    """``segment_max`` and ``segment_max_fast`` are one Function with two
+    reductions: on sorted ids with an empty node and a planted tie, their
+    outputs and gradients are equal bit for bit, the scatter form given
+    ``point0_idx`` through the Function itself (its public form takes
+    point 0)."""
+    data, ids, p0, g = _tie_case(dtype, seed=4)
+    p0 = _t(p0) if point0 else None
+    if point0:
+        def scatter(d):
+            return tsegment._NodeMax.apply(d, _t(ids), None, p0, 8,
+                                           tsegment.scatter_max)
+    else:
+        def scatter(d):
+            return tops.segment_max(d, _t(ids), 8)
+    outs, grads = [], []
+    for pool in (scatter, lambda d: tops.segment_max_fast(
+            d, _t(ids), 8, point0_idx=p0)):
+        d = _t(data).to(_tdt(dtype)).requires_grad_()
+        out = pool(d)
+        (out.float() * _t(g)).sum().backward()
+        outs.append(out.detach())
+        grads.append(d.grad)
+    assert outs[0].dtype == outs[1].dtype == _tdt(dtype)
+    assert torch.equal(outs[0], outs[1])
+    assert torch.equal(grads[0], grads[1])
+    row = torch.arange(2), (torch.zeros(2, dtype=torch.long) if p0 is None
+                            else p0.long())
+    assert torch.equal(outs[0][:, 3], _t(data).to(_tdt(dtype))[row])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_scatter_pooling_keeps_an_all_minus_inf_node(dtype):
+    """A node whose values are all -inf reads -inf by scatter, as the JAX
+    package's ``segment_max_scatter`` does; the kernel's form starts at
+    -3e38 and reads that."""
+    data, ids = _seg_case(seed=5)
+    data[ids == 2] = -np.inf
+    td = _t(data).to(_tdt(dtype))
+    got = tops.segment_max(td, _t(ids), 8)
+    want = np.asarray(jops.segment_max(jnp.asarray(data, dtype),
+                                       jnp.asarray(ids), 8), np.float32)
+    assert bool(torch.isneginf(got[:, 2]).all())
+    np.testing.assert_array_equal(_np(got), want)
+    fast = tops.segment_max_fast(td, _t(ids), 8)
+    assert torch.equal(fast[:, 2], torch.full_like(fast[:, 2], -3.0e38))
 
 
 def test_segment_max_fast_empty_node_gradient_goes_to_point0():

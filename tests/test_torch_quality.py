@@ -504,9 +504,9 @@ def test_rounding_probe_refits_the_som_and_soaks(trees, tmp_path):
 
 
 class _Bf16ExactBmm:
-    """``torch`` as ``ops/segment.py`` sees it, noting whether each operand
-    of its ``bmm`` (``route_max_grad``'s one-hot products) is exact in
-    bfloat16."""
+    """``torch`` as ``ops/cuda/segment_max_grad.py`` sees it, noting
+    whether each operand of its ``bmm`` (``route_max_grad``'s one-hot
+    products) is exact in bfloat16."""
 
     def __init__(self):
         self.exact = []
@@ -529,11 +529,11 @@ def test_rounding_probe_knnmax_starves_the_encoder(monkeypatch):
     take operands exact in bfloat16, which is why the probe leaves them
     unrounded."""
     import torch_tpu_rounding_probe as probe
-    from sonet_torch.ops import segment
+    from sonet_torch.ops.cuda import segment_max_grad
     model, args = _bf16_model()
     model.train()
     route = _Bf16ExactBmm()
-    monkeypatch.setattr(segment, "torch", route)
+    monkeypatch.setattr(segment_max_grad, "torch", route)
 
     def run():
         model.zero_grad()

@@ -102,8 +102,8 @@ def test_plain_operator_equals_a_per_node_loop(name, dtype):
     if hook is None:
         got = segment.route_max_grad(data, ids, out, counts, g, p0)
     else:
-        got = segment.route_max_grad_plain(data, ids, out, counts, g, p0,
-                                           reduce_ties=hook)
+        got = smg.route_max_grad_plain(data, ids, out, counts, g, p0,
+                                       reduce_ties=hook)
     assert got.dtype == want.dtype
     assert not chip_smoke.pool_grad_mismatch(torch, got, want, counts, g,
                                              p0)
