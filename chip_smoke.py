@@ -41,7 +41,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    ``==`` but the point0 row of a cloud with an empty node (one rounding);
    timed by graph beside its bound, its two kernels' device durations and
    the plain chain's time; its calls are counted on every path, once a
-   train step and never in a served forward;
+   train step and never in a served forward.  Node recentering's segment
+   sums (``segment_sums``) against their plain version (the float32
+   one-hot arithmetic) and a float64 sum at (8, 15000, 3), (8, 3072, 3),
+   (8, 1536, 2) with M=25 and (1, 15000, 3), with sorted ids from a real
+   assignment, and on edge cases (``segment_sums_cases``): counts ``==``,
+   sums within 1e-5 of the absolute sums of their rows, two calls the
+   same bits; timed by graph beside its bound, the plain version and the
+   float32 one-hot ``bmm`` it replaces; its launches are counted on every
+   path, like kernel 1's: once in each encoder forward that Python runs;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
    width, seeded random weights) served through ``ServingEngine`` on the
    card, its forward a captured CUDA graph: the warm-up captures it
@@ -536,10 +544,13 @@ def phase_kernels():
     ids_mnist = _mnist_ids(torch, np, dev)
     pool_ids = dict(zip(POOL_GRAD_SHAPES, (
         ids, _flagship_ids(torch, B, 1024, M, k, gen, dev), ids_mnist)))
+    sums_ids = dict(zip(SUMS_SHAPES, (ids, pool_ids[POOL_GRAD_SHAPES[1]],
+                                      ids_mnist, ids[:1].contiguous())))
     return [_check_segment_max_window(torch, gen, ids, M, ids_mnist),
             _check_segment_argmax(torch, gen, ids, M),
             *_check_batchnorm_act(torch, gen),
-            _check_segment_max_grad(torch, gen, pool_ids)]
+            _check_segment_max_grad(torch, gen, pool_ids),
+            _check_segment_sums(torch, gen, sums_ids)]
 
 
 def host_us_per_call(fn, calls: int = 200) -> float:
@@ -1164,6 +1175,153 @@ def _check_segment_max_grad(torch, gen, ids_by_shape):
                 f"gap {dev_ms['gap']:.4f} ms, route "
                 f"{dev_ms['pool_grad_route']:.4f} ms; the plain chain "
                 f"{plain_ms:.4f} ms by graph")
+    return row
+
+
+# node recentering's segment sums (B, N, D, M) on the main path: the
+# classifier's and the autoencoder's 8 x 15,000 stacked points, the
+# segmenter's 8 x 3,072, the MNIST classifier's 8 x 1,536 2-D points on 25
+# nodes, and a served request of one cloud of 15,000
+SUMS_SHAPES = ((8, 15000, 3, 64), (8, 3072, 3, 64), (8, 1536, 2, 25),
+               (1, 15000, 3, 64))
+# the sums' tolerance against a float64 sum and against the plain version,
+# a share of the sum of the absolute values they add: each adds a node's
+# rows in float32, one rounding an add; on these random rows that stays
+# far inside 1e-5 at every run length here (up to 15,000 rows)
+SUMS_RTOL = 1e-5
+
+
+def segment_sums_cases(torch, gen, dev):
+    """Edge cases for the segment sums as (name, ids, x, M), the ids sorted
+    in each cloud, as the kernel takes them."""
+    def rand(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def rand_ids(shape, lo, hi):
+        i = torch.randint(lo, hi, shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+        return torch.sort(i, dim=1).values.contiguous()
+
+    # nodes 3 and 14-19 empty
+    empty = rand_ids((2, 700), 0, 14)
+    empty[empty == 3] = 2
+    one = torch.tensor([0, 31, 63], dtype=torch.int32, device=dev)
+    cases = [("empty nodes", empty, rand((2, 700, 3)), 20),
+             ("all rows on one node: the first, a middle, the last",
+              one[:, None].expand(3, 15000).contiguous(),
+              rand((3, 15000, 3)), 64),
+             ("ids outside [0, M)", rand_ids((2, 1000), -3, 20),
+              rand((2, 1000, 3)), 16),
+             ("M=1", rand_ids((2, 500), 0, 1), rand((2, 500, 3)), 1),
+             ("N=0", torch.zeros((2, 0), dtype=torch.int32, device=dev),
+              rand((2, 0, 3)), 4),
+             ("a node a row, every other node empty",
+              (2 * torch.arange(30, dtype=torch.int32, device=dev))
+              .expand(2, 30).contiguous(), rand((2, 30, 2)), 64)]
+    # the search's rounds: a range of 128 ids or fewer is read whole
+    for n in (1, 127, 128, 129, 257, 16385):
+        cases.append((f"N={n}, D=2", rand_ids((2, n), 0, 8), rand((2, n, 2)),
+                      8))
+    return cases
+
+
+def segment_sums_mismatch(torch, got, want, ids, x, M):
+    """Where the kernel's (counts, sums) ``got`` leave the plain version's
+    ``want``: a list of what differs, empty if the counts are ``==`` and
+    each sum lies within ``SUMS_RTOL`` of the sum of the absolute values
+    of its rows from a float64 sum and from the plain version's."""
+    from sonet_torch.ops import one_hot
+    (counts, sums), (want_counts, want_sums) = got, want
+    if (counts.shape != want_counts.shape or sums.shape != want_sums.shape
+            or counts.dtype != torch.float32 or sums.dtype != torch.float32):
+        return [f"got {tuple(counts.shape)} {counts.dtype} and "
+                f"{tuple(sums.shape)} {sums.dtype}, want "
+                f"{tuple(want_counts.shape)} and {tuple(want_sums.shape)} "
+                "float32"]
+    onehot_t = one_hot(ids, M, torch.float64).transpose(1, 2)
+    exact = torch.bmm(onehot_t, x.double())
+    tol = SUMS_RTOL * torch.bmm(onehot_t, x.double().abs())
+    bad = []
+    if not torch.equal(counts, want_counts):
+        bad.append(f"{int((counts != want_counts).sum())} counts differ")
+    for name, ref in (("float64", exact), ("plain", want_sums.double())):
+        off = (sums.double() - ref).abs() > tol
+        if bool(off.any()):
+            bad.append(f"{int(off.sum())} sums off the {name} sum, by up to "
+                       f"{float((sums.double() - ref).abs().max()):.3g}")
+    return bad
+
+
+def _check_segment_sums(torch, gen, ids_by_shape):
+    """Node recentering's segment sums (``csrc/segment_sums.cu``) against
+    their plain version, ``segment_sums_plain``, and a float64 sum on the
+    card (``segment_sums_mismatch``): at each main-path shape with sorted
+    ids from a real top-k assignment (``ids_by_shape``), where the sums
+    must also equal the plain version's (the card's one-hot product, which
+    adds a node's rows in the same order at B >= 2) bit for bit, and on the
+    edge cases of ``segment_sums_cases``, two calls giving the same bits; then
+    timed by graph replay beside its bound (each input byte read once,
+    each output byte written once), the plain version's time by graph and
+    the float32 one-hot ``bmm`` it replaces in the step (``library_ms``,
+    the one-hot made beforehand)."""
+    from sonet_torch.ops import one_hot
+    from sonet_torch.ops.cuda import segment_sums as ss
+    dev = torch.device("cuda")
+    row = {"name": "segment_sums", "route": "cuda",
+           "source": "sonet_torch/csrc/segment_sums.cu",
+           "replaces": "none (sonet_tpu/nn/encoder.py recenters the nodes "
+                       "with one-hot products on the MXU)",
+           "launches": None, "library_ms": None, "shapes": {}}
+    cases = [(f"{shape}", ids_by_shape[shape],
+              torch.randn(shape[:3], generator=gen, device=dev), shape[3])
+             for shape in SUMS_SHAPES]
+    for name, ids, x, M in cases + segment_sums_cases(torch, gen, dev):
+        got = ss.segment_sums(ids, x, M)
+        again = ss.segment_sums(ids, x, M)
+        want = ss.segment_sums_plain(ids, x, M)
+        torch.cuda.synchronize()
+        bad = segment_sums_mismatch(torch, got, want, ids, x, M)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            bad.append("two calls differ")
+        # at B = 1 cuBLAS picks another kernel, which adds in another order
+        in_order = name in [c[0] for c in cases] and x.shape[0] > 1
+        if in_order and not torch.equal(got[1], want[1]):
+            bad.append(f"{int((got[1] != want[1]).sum())} sums not the "
+                       "one-hot product's bits")
+        log(f"segment_sums at {name} {tuple(x.shape)}, M={M}, "
+            f"{int((got[0] == 0).sum())} empty nodes: "
+            + (str(bad) if bad else "equal counts, sums " + (
+                "equal" if torch.equal(got[1], want[1]) else
+                "within tolerance")))
+        if bad:
+            raise AssertionError(f"segment_sums differs from its plain "
+                                 f"version at {name}: {bad}")
+
+    for shape in SUMS_SHAPES:
+        B, N, D, M = shape
+        ids = ids_by_shape[shape]
+        x = torch.randn((B, N, D), generator=gen, device=dev)
+        nbytes = B * N * D * 4 + B * N * 4 + B * M * 4 + B * M * D * 4
+        bound_ms, bound_by = _bound(nbytes, B * N * D)
+        graph_ms = time_graph_ms(lambda: ss.segment_sums(ids, x, M),
+                                 reps=20, inner=20)
+        plain_ms = time_graph_ms(lambda: ss.segment_sums_plain(ids, x, M),
+                                 reps=10, inner=5)
+        onehot_t = one_hot(ids, M, torch.float32).transpose(1, 2)
+        library_ms = time_graph_ms(lambda: torch.bmm(onehot_t, x), reps=20,
+                                   inner=20)
+        key = f"{B}x{N}x{D} M={M}"
+        row["shapes"][key] = {
+            "graph_ms": graph_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "nbytes": nbytes, "plain_graph_ms": plain_ms,
+            "library_ms": library_ms}
+        if shape == SUMS_SHAPES[0]:
+            row["library_ms"] = library_ms
+        log(f"segment_sums at {key}: {graph_ms:.4f} ms by graph replay, "
+            f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s): {bound_ms / graph_ms:.1%}; "
+            f"the plain version {plain_ms:.4f} ms by graph; the float32 "
+            f"one-hot bmm alone {library_ms:.4f} ms by graph")
     return row
 
 
@@ -4296,13 +4454,16 @@ def _sharded_pooling_check(mesh, dev):
 
 def _mesh_counters():
     """Every kernel's launch counter by its row's name: kernels 1 and 2,
-    the fused BatchNorm by mode, and node pooling's backward."""
+    the fused BatchNorm by mode, node pooling's backward and node
+    recentering's segment sums."""
     from sonet_torch.ops.cuda.segment_argmax import segment_argmax
     from sonet_torch.ops.cuda.segment_max_grad import segment_max_grad
     from sonet_torch.ops.cuda.segment_max_window import windowed_vals
+    from sonet_torch.ops.cuda.segment_sums import segment_sums
     return {"segment_max_window": windowed_vals,
             "segment_argmax": segment_argmax, **batchnorm_counters(),
-            "segment_max_grad": segment_max_grad}
+            "segment_max_grad": segment_max_grad,
+            "segment_sums": segment_sums}
 
 
 def _planted_sync_grads(model, mesh):
@@ -4998,7 +5159,9 @@ def main(argv=None) -> int:
     phase_build()
     kernels = phase_kernels()
     counters = _mesh_counters()
-    on_path = ("segment_max_window",)       # kernel 2 is on no path
+    # kernel 2 is on no path; the segment sums run beside kernel 1 in every
+    # encoder forward on the card, so every path holds both to one count
+    on_path = ("segment_max_window", "segment_sums")
     from sonet_torch import config
     classify, segment = config.modelnet40(), config.shapenetpart()
     autoenc = config.autoencoder()

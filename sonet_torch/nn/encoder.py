@@ -8,10 +8,12 @@ follows ``nn.Module.training``; ``epoch`` drives the BatchNorm momentum
 decay in training.
 
 With ``pooling="sorted_window"`` the stacked points are sorted by node
-once per forward, and pooling runs through the CUDA windowed segment-max
-kernel (``ops.segment_fast``); every per-point layer is permutation-
-equivariant and the cluster means are order-invariant, so only pooling
-sees the order.
+once per forward: the node counts and cluster sums run through the CUDA
+segment-sum kernel over each node's run of rows (``ops.cuda.segment_sums``)
+and pooling through the CUDA windowed segment-max kernel
+(``ops.segment_fast``); every per-point layer is permutation-equivariant
+and the cluster means are order-invariant, so only pooling sees the
+order.
 
 Under a mesh (``parallel.collectives.use_mesh``) each rank holds its
 (B/D, N/P) block of the cloud: it stacks the k copies of its own points
@@ -40,7 +42,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
-from ..ops import assign_topk, knn, one_hot, segment_max, segment_max_fast
+from ..ops import (assign_topk, knn, one_hot, segment_max, segment_max_fast,
+                   segment_sums)
 from ..parallel import collectives
 from .layers import (KNNModule, PointLayer, PointNetMLP, PointResNet,
                      recomputation)
@@ -163,19 +166,27 @@ class Encoder(nn.Module):
         else:
             perm = inv_perm = point0_idx = None
 
-        # the one-hot is in the compute dtype (exact 0/1), sums in f32
+        # the one-hot is in the compute dtype (exact 0/1); the scatter
+        # path's sums below and the segmenter's skip gathers read it
         oh_dtype = compute_dtype(cfg) or torch.float32
         onehot = one_hot(min_idx, M, oh_dtype)         # (B, kN, M)
         split = collectives.axis_size("points") > 1
+        # node counts and coordinate sums in f32: over node-sorted rows each
+        # node is a run that segment_sums adds up (the kernel on a card),
+        # else through the one-hot
+        if sort_points:
+            counts, cluster_sum = segment_sums(min_idx, x_stack.float(), M)
+        else:
+            counts = onehot.sum(1, dtype=torch.float32)
+            cluster_sum = torch.bmm(onehot.float().transpose(1, 2),
+                                    x_stack.float())
         # under a split points axis: the sums over every rank's points
-        counts = collectives.reduce_points(
-            onehot.sum(1, dtype=torch.float32))        # (B, M)
+        counts = collectives.reduce_points(counts)     # (B, M)
         mask_row_max = ((counts > 0) if sort_points or split
                         else assign.mask_row_max)
 
         # -- recenter nodes to the actual cluster means ----------------------
-        cluster_sum = collectives.reduce_points(torch.bmm(
-            onehot.float().transpose(1, 2), x_stack.float()))
+        cluster_sum = collectives.reduce_points(cluster_sum)
         som_node = cluster_sum / (counts[..., None] + 1e-5)   # (B, M, D)
 
         # -- per-point centers and decentering -------------------------------

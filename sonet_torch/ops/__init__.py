@@ -16,6 +16,7 @@ from .cuda.segment_argmax import (segment_argmax, segment_argmax_plain,
                                   segment_max_argmax)
 from .cuda.segment_max_window import (segment_max_windowed, windowed_vals,
                                       windowed_vals_plain)
+from .cuda.segment_sums import segment_sums, segment_sums_plain
 
 __all__ = [
     "pairwise_sqdist", "knn", "assign_topk", "one_hot", "one_hot_f32",
@@ -26,6 +27,6 @@ __all__ = [
     "segment_max_sorted", "sort_by_segment",
     "route_max_grad", "segment_max_fast", "segment_max_windowed",
     "windowed_vals", "windowed_vals_plain", "segment_argmax",
-    "segment_argmax_plain", "segment_max_argmax", "chamfer", "robust_norm",
-    "ChamferResult",
+    "segment_argmax_plain", "segment_max_argmax", "segment_sums",
+    "segment_sums_plain", "chamfer", "robust_norm", "ChamferResult",
 ]

@@ -58,14 +58,16 @@ without a card.  A program runs where its weights lie; ``load_exported``
 moves one stored on another device type onto its device
 (``torch.export.passes.move_to_device_pass``), and a process using
 ``torch`` alone does the same.  A ``cuda``-only export keeps the windowed
-segment-max kernel as the operator ``sonet_torch::windowed_vals`` and,
+segment-max kernel as the operator ``sonet_torch::windowed_vals``, the
+node recentering's segment sums as ``sonet_torch::segment_sums`` and,
 traced on a card, each BatchNorm as ``sonet_torch::batchnorm_act_eval``
 (the fused kernels); unlike the JAX artifact, which embeds its Mosaic
 kernel, such a program names operators that must be registered before it
 loads, so ``load_exported`` imports the modules the manifest's
 ``requires`` lists (``sonet_torch.ops.cuda.segment_max_window``,
-``sonet_torch.ops.cuda.batchnorm_act``: the operators alone, no model
-code), and the kernels are built from the package's source at first use.
+``sonet_torch.ops.cuda.batchnorm_act``, ``sonet_torch.ops.cuda.
+segment_sums``: the operators alone, no model code), and the kernels are
+built from the package's source at first use.
 
 ``export_run(..., poly_batch=True)`` writes an any-batch-size artifact
 (manifest shapes carry ``None``), in one of two forms:
@@ -115,10 +117,12 @@ ARTIFACT_BLOB = "model.pt2"
 ARTIFACT_MANIFEST = "manifest.json"
 KERNEL_OP_MODULE = "sonet_torch.ops.cuda.segment_max_window"
 BATCHNORM_OP_MODULE = "sonet_torch.ops.cuda.batchnorm_act"
+SUMS_OP_MODULE = "sonet_torch.ops.cuda.segment_sums"
 # the module that registers each of the package's operators a program
 # may hold, in the order a manifest lists them
 _OP_MODULES = {"windowed_vals": KERNEL_OP_MODULE,
-               "batchnorm_act_eval": BATCHNORM_OP_MODULE}
+               "batchnorm_act_eval": BATCHNORM_OP_MODULE,
+               "segment_sums": SUMS_OP_MODULE}
 # the micro-batcher fills a symbolic artifact's dispatch toward this size
 _SYMBOLIC_FILL = 8
 

@@ -18,11 +18,13 @@ import chip_smoke  # noqa: E402  (the edge cases it holds the kernel to)
 from sonet_torch import config, train
 from sonet_torch.models import build_model
 from sonet_torch.nn import layers as nn_layers
+from sonet_torch import ops as seg_ops
 from sonet_torch.ops import segment as seg
 from sonet_torch.ops.cuda import batchnorm_act as bna
 from sonet_torch.ops.cuda import segment_argmax as sam
 from sonet_torch.ops.cuda import segment_max_grad as smg
 from sonet_torch.ops.cuda import segment_max_window as smw
+from sonet_torch.ops.cuda import segment_sums as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -1512,3 +1514,167 @@ def test_segment_max_grad_engages_once_a_captured_modelnet40_step(
     before = smg.segment_max_grad.launches
     graph(**batch)                          # a replay launches nothing
     assert smg.segment_max_grad.launches == before
+
+
+# ---------------------------------------------------------------------------
+# node recentering's segment sums: csrc/segment_sums.cu
+# ---------------------------------------------------------------------------
+
+def _sums_both(ids, x, M):
+    """(the kernel's (counts, sums), the plain version's), both on the
+    card; the kernel launched once."""
+    before = ss.segment_sums.launches
+    got = ss.segment_sums(ids, x, M)
+    torch.cuda.synchronize()
+    assert ss.segment_sums.launches == before + 1
+    return got, ss.segment_sums_plain(ids, x, M)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.SUMS_SHAPES)
+def test_segment_sums_kernel_equals_plain(cuda_device, shape):
+    """At the main path's shapes, node-sorted ids of a real top-k
+    assignment: counts ``==`` the plain version's, the card's one-hot
+    product, and the sums within ``SUMS_RTOL`` of the absolute sums from it
+    and from a float64 sum; at B >= 2, where cuBLAS adds a node's rows in
+    their order as the kernel does, the sums ``==`` too (at B = 1 it takes
+    another kernel, which adds them in another order)."""
+    B, N, D, M = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    pc = torch.randn((B, N // 3, D), generator=gen, device=cuda_device)
+    nodes = pc[:, torch.randperm(N // 3, generator=gen,
+                                 device=cuda_device)[:M]]
+    ids = torch.sort(seg_ops.assign_topk(pc, nodes, 3).min_idx,
+                     dim=1).values.contiguous()
+    x = torch.randn((B, N, D), generator=gen, device=cuda_device)
+    got, want = _sums_both(ids, x, M)
+    assert not chip_smoke.segment_sums_mismatch(torch, got, want, ids, x, M)
+    if B > 1:
+        assert torch.equal(got[1], want[1])
+
+
+def test_segment_sums_edge_cases(cuda_device):
+    """Empty nodes, every row on one node (the first, a middle, the last),
+    ids outside [0, M), M=1, N=0, a node a row, and the search's round
+    edges: each within the rule of ``segment_sums_mismatch``, an empty
+    node's count and sum 0."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    failed = {}
+    for name, ids, x, M in chip_smoke.segment_sums_cases(torch, gen,
+                                                         cuda_device):
+        got, want = _sums_both(ids, x, M)
+        bad = chip_smoke.segment_sums_mismatch(torch, got, want, ids, x, M)
+        empty = got[0] == 0
+        if bool(got[1][empty].any()):
+            bad.append("an empty node's sum is not 0")
+        if bad:
+            failed[name] = bad
+    assert not failed
+
+
+def test_segment_sums_is_deterministic(cuda_device):
+    """No atomics: two calls on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ids = torch.sort(torch.randint(0, 64, (8, 15000), generator=gen,
+                                   device=cuda_device, dtype=torch.int32),
+                     dim=1).values.contiguous()
+    x = torch.randn((8, 15000, 3), generator=gen, device=cuda_device)
+    first = ss.segment_sums(ids, x, 64)
+    second = ss.segment_sums(ids, x, 64)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_segment_sums_replays_in_a_graph(cuda_device):
+    """Captured in a CUDA graph, the kernel launches once at the capture
+    and none at a replay, and a replay over new inputs written in place
+    gives the eager call's bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+
+    def inputs():
+        ids = torch.sort(torch.randint(0, 64, (8, 3072), generator=gen,
+                                       device=cuda_device,
+                                       dtype=torch.int32), dim=1).values
+        return ids, torch.randn((8, 3072, 3), generator=gen,
+                                device=cuda_device)
+    ids, x = inputs()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ss.segment_sums(ids, x, 64)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = ss.segment_sums.launches
+    with torch.cuda.graph(graph):
+        out = ss.segment_sums(ids, x, 64)
+    assert ss.segment_sums.launches == before + 1
+    new_ids, new_x = inputs()
+    ids.copy_(new_ids)
+    x.copy_(new_x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert ss.segment_sums.launches == before + 1
+    want = ss.segment_sums(new_ids.contiguous(), new_x, 64)
+    assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_segment_sums_rejects_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    ids = torch.sort(torch.randint(0, 8, (2, 100), generator=gen,
+                                   device=cuda_device, dtype=torch.int32),
+                     dim=1).values.contiguous()
+    x = torch.randn((2, 100, 3), generator=gen, device=cuda_device)
+    before = ss.segment_sums.launches
+    with pytest.raises(TypeError, match="x dtype"):
+        ss.segment_sums(ids, x.bfloat16(), 8)
+    with pytest.raises(TypeError, match="seg_ids dtype"):
+        ss.segment_sums(ids.long(), x, 8)
+    with pytest.raises(ValueError, match="want"):
+        ss.segment_sums(ids, torch.randn((2, 100, 4), device=cuda_device), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.segment_sums(ids, x.transpose(0, 1).contiguous().transpose(0, 1),
+                        8)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ss.segment_sums(ids.cpu(), x, 8)
+    assert ss.segment_sums.launches == before
+    # the CPU takes the plain version and launches nothing
+    ss.segment_sums(ids.cpu(), x.cpu(), 8)
+    assert ss.segment_sums.launches == before
+
+
+def test_segment_sums_engage_once_an_encoder_forward(cuda_device,
+                                                     monkeypatch):
+    """The full-width modelnet40 train step, eager and captured: every
+    encoder forward that Python runs (the eager step, the capture's warm-up
+    and the capture) launches the segment-sum kernel once, as it calls
+    kernel 1 once, and a replay launches nothing; no forward makes the
+    float32 one-hot ``bmm`` of the recentering; the replayed step's loss
+    is the eager step's."""
+    from sonet_torch.train.graphs import StepGraph
+    cfg = config.modelnet40().replace(dropout=0.0)
+    state = train.init_state(cfg, device=cuda_device, seed=0)
+    train.state.set_capturable(state.optimizer, True)
+    step, _ = train.make_steps(cfg, 10)
+    batch = _full_batch(cfg, cuda_device)
+    products, real_bmm = [], torch.bmm
+
+    def recorded(a, b, *args, **kw):
+        products.append((tuple(a.shape), tuple(b.shape)))
+        return real_bmm(a, b, *args, **kw)
+    monkeypatch.setattr(torch, "bmm", recorded)
+    restore = train.state.snapshot(state)
+    sums0, calls0 = ss.segment_sums.launches, smw.windowed_vals.launches
+    eager = float(step(state, batch, None)[1]["loss"])
+    assert ss.segment_sums.launches - sums0 == 1
+    restore()
+    graph = StepGraph(lambda **b: step(state, b, None)[1], cuda_device,
+                      snapshot=lambda: train.state.snapshot(state))
+    replayed = float(graph(**batch)["loss"])
+    torch.cuda.synchronize()
+    calls = smw.windowed_vals.launches - calls0
+    assert calls == 3 == ss.segment_sums.launches - sums0
+    assert replayed == eager
+    B, kN, M = cfg.batch_size, cfg.k * cfg.input_pc_num, cfg.node_num
+    assert ((B, M, kN), (B, kN, 3)) not in products
+    before = ss.segment_sums.launches
+    graph(**batch)
+    torch.cuda.synchronize()
+    assert ss.segment_sums.launches == before

@@ -35,9 +35,9 @@ from sonet_torch.convert import flatten, load_jax_variables
 from sonet_torch.models import build_model
 from sonet_torch.nn import layers
 from sonet_torch.serving import (ARTIFACT_MANIFEST, BATCHNORM_OP_MODULE,
-                                 KERNEL_OP_MODULE, ServingEngine,
-                                 build_serve_fn, export_run, input_signature,
-                                 load_exported)
+                                 KERNEL_OP_MODULE, SUMS_OP_MODULE,
+                                 ServingEngine, build_serve_fn, export_run,
+                                 input_signature, load_exported)
 from sonet_torch.tasks import serve as tserve
 
 torch.set_num_threads(2)
@@ -232,17 +232,19 @@ def test_load_exported_rejects_bad_inputs(run, artifact, case):
 @pytest.mark.parametrize("run", ["classify"], indirect=True)
 def test_kernel_export_holds_the_operator(run, tmp_path):
     """A cuda-only export keeps kernel 1 as ``sonet_torch::windowed_vals``
-    (traced here on the CPU through the operator's fake implementation),
-    and says that loading it requires the operator's module."""
+    and the recentering's sums as ``sonet_torch::segment_sums`` (traced
+    here on the CPU through the operators' fake implementations), and says
+    that loading it requires the operators' modules."""
     task, run_dir, *_ = run
     manifest = export_run(run_dir, out_dir=str(tmp_path), device="cpu",
                           platforms=["cuda"])
     assert manifest["pooling"] == "sorted_window"
-    assert manifest["requires"] == ["sonet_torch.ops.cuda.segment_max_window"]
+    assert manifest["requires"] == [KERNEL_OP_MODULE, SUMS_OP_MODULE]
     program = torch.export.load(str(tmp_path / "model.pt2"))
     ops = [str(n.target) for n in program.graph.nodes
            if n.op == "call_function"]
     assert ops.count("sonet_torch.windowed_vals.default") == 1  # the pooling
+    assert ops.count("sonet_torch.segment_sums.default") == 1   # recentering
     with pytest.raises(ValueError, match="exported for"):
         load_exported(str(tmp_path), device="cpu")
 
@@ -259,7 +261,8 @@ def test_kernel_export_holds_the_batchnorm_operator(run, tmp_path,
     monkeypatch.setattr(layers, "fused", lambda t: t.shape[-1] % 8 == 0)
     manifest = export_run(run_dir, out_dir=str(tmp_path), device="cpu",
                           platforms=["cuda"])
-    assert manifest["requires"] == [KERNEL_OP_MODULE, BATCHNORM_OP_MODULE]
+    assert manifest["requires"] == [KERNEL_OP_MODULE, BATCHNORM_OP_MODULE,
+                                    SUMS_OP_MODULE]
     program = torch.export.load(str(tmp_path / "model.pt2"))
     ops = [str(n.target) for n in program.graph.nodes
            if n.op == "call_function"]

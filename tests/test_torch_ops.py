@@ -643,3 +643,119 @@ def test_encoder_global_max_routes_ties_to_first_node():
     np.testing.assert_array_equal(grad, want)
     assert (grad[:, 2, : F // 2] == 1).all()
     assert (grad[:, 9, : F // 2] == 0).all()
+
+
+# ---------------------------------------------------------------------------
+# node recentering's segment sums: sonet_torch::segment_sums on the CPU
+# ---------------------------------------------------------------------------
+
+def _sums_case(B=3, N=90, D=3, M=10, seed=0, sorted_ids=True, lo=0, hi=None):
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(lo, M if hi is None else hi, (B, N)).astype(np.int32)
+    ids[ids == 3] = 2                                # node 3 empty
+    if sorted_ids:
+        ids = np.sort(ids, axis=1)
+    return _t(ids), _t(rs.randn(B, N, D).astype(np.float32)), M
+
+
+@pytest.mark.parametrize("onehot_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "outside", "2d"])
+def test_segment_sums_cpu_is_the_onehot_arithmetic(case, onehot_dtype):
+    """On the CPU the operator is the encoder's former one-hot arithmetic
+    bit for bit: the compute-dtype one-hot's column sums in float32 and
+    the float32 product of its transpose with the rows."""
+    ids, x, M = _sums_case(
+        sorted_ids=case != "unsorted", D=2 if case == "2d" else 3,
+        lo=-2 if case == "outside" else 0,
+        hi=12 if case == "outside" else None)
+    onehot = tops.one_hot(ids, M, _tdt(onehot_dtype))
+    before = tops.segment_sums.launches
+    counts, sums = tops.segment_sums(ids, x, M)
+    assert tops.segment_sums.launches == before
+    assert torch.equal(counts, onehot.sum(1, dtype=torch.float32))
+    assert torch.equal(sums, torch.bmm(onehot.float().transpose(1, 2),
+                                       x.float()))
+    assert counts.dtype == sums.dtype == torch.float32
+    assert bool((counts[:, 3] == 0).all()) and not bool(sums[:, 3].any())
+
+
+def test_segment_sums_fake_gives_the_shapes():
+    """The fake implementation (what ``torch.export`` traces through):
+    counts (B, M) and sums (B, M, D), float32, for both spatial widths;
+    ``opcheck`` holds the schema, the fake and the autograd registration
+    to the CPU implementation."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    for D in (2, 3):
+        ids, x, M = _sums_case(D=D)
+        with FakeTensorMode() as mode:
+            counts, sums = torch.ops.sonet_torch.segment_sums(
+                mode.from_tensor(ids), mode.from_tensor(x), 25)
+        assert (tuple(counts.shape), tuple(sums.shape)) == ((3, 25),
+                                                            (3, 25, D))
+        assert counts.dtype == sums.dtype == torch.float32
+        torch.library.opcheck(torch.ops.sonet_torch.segment_sums.default,
+                              (ids, x.requires_grad_(), M))
+
+
+@pytest.mark.parametrize("case", ["sorted", "outside"])
+def test_segment_sums_backward_equals_autograd_through_the_plain_version(
+        case):
+    """The sums' gradient routes each node's cotangent to its rows (a zero
+    row for an id outside [0, M)), as autograd does through the float32
+    one-hot product; the counts carry no gradient."""
+    ids, x, M = _sums_case(lo=-2 if case == "outside" else 0,
+                           hi=12 if case == "outside" else None, seed=3)
+    g = torch.randn((3, M, 3), generator=torch.Generator().manual_seed(4))
+    mine = x.clone().requires_grad_()
+    counts, sums = tops.segment_sums(ids, mine, M)
+    assert not counts.requires_grad and sums.requires_grad
+    (sums * g).sum().backward()
+    plain = x.clone().requires_grad_()
+    (torch.bmm(tops.one_hot(ids, M, torch.float32).transpose(1, 2), plain)
+     * g).sum().backward()
+    assert torch.equal(mine.grad, plain.grad)
+
+
+def test_segment_sums_rejects_what_it_does_not_take():
+    ids, x, M = _sums_case()
+    meta = x.to("meta")
+    for args, err, match in (
+            ((ids, x.double(), M), TypeError, "x dtype"),
+            ((ids, x.bfloat16(), M), TypeError, "x dtype"),
+            ((ids.long(), x, M), TypeError, "seg_ids dtype"),
+            ((ids, x[..., :1], M), ValueError, "D in"),
+            ((ids, torch.zeros(3, 90, 4), M), ValueError, "D in"),
+            ((ids[:, :50], x, M), ValueError, "want"),
+            ((ids[0], x[0], M), ValueError, "want"),
+            ((ids, x, -1), ValueError, "range"),
+            ((ids, meta, M), ValueError, "one CUDA device"),
+            ((ids.to("meta"), meta, M), ValueError, "one CUDA device")):
+        with pytest.raises(err, match=match):
+            tops.segment_sums(*args)
+    assert tops.segment_sums.launches == 0
+
+
+@pytest.mark.parametrize("pooling", ["sorted_window", "scatter"])
+def test_encoder_recenters_through_segment_sums_on_the_sorted_path(
+        pooling, monkeypatch):
+    """The encoder's sorted pipeline takes the node counts and cluster sums
+    from ``segment_sums`` once a forward, over the node-sorted rows; the
+    scatter path keeps the one-hot product and never calls it."""
+    from sonet_torch import config as tcfg
+    from sonet_torch.models import build_model
+    from sonet_torch.nn import encoder
+
+    calls, real = [], encoder.segment_sums
+
+    def counted(ids, x, M):
+        calls.append(bool((ids[:, 1:] >= ids[:, :-1]).all()))
+        return real(ids, x, M)
+    monkeypatch.setattr(encoder, "segment_sums", counted)
+    cfg = tcfg.tiny_test().replace(pooling=pooling)
+    model = build_model(cfg, device="cpu", seed=0)
+    rs = np.random.RandomState(0)
+    pc = _t(rs.randn(2, cfg.input_pc_num, 3).astype(np.float32))
+    sn = _t(rs.randn(2, cfg.input_pc_num, 3).astype(np.float32))
+    _, enc = model(pc, sn, pc[:, :cfg.node_num] + 0.1)
+    assert calls == ([True] if pooling == "sorted_window" else [])
+    assert float(enc.counts.sum()) == cfg.k * cfg.input_pc_num * 2

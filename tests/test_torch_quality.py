@@ -424,6 +424,37 @@ def test_rounding_probe_rounds_the_three_products():
         assert (p - r).abs().max() <= 1e-2 * p.abs().max()
 
 
+def test_rounding_probe_rounds_the_sorted_pipelines_cluster_sum():
+    """On the sorted pipeline, the card's, the cluster sum is the encoder's
+    ``segment_sums``: the probe rounds its points and the centers' gather
+    after it as it rounds the scatter path's ``bmm``, and puts the
+    encoder's own ``segment_sums`` back when it ends."""
+    import torch_tpu_rounding_probe as probe
+    from sonet_torch.config import tiny_test
+    from sonet_torch.models import build_model
+    from sonet_torch.nn import encoder
+
+    cfg = tiny_test().replace(pooling="sorted_window")
+    model = build_model(cfg, device="cpu").eval()
+    rng = np.random.default_rng(1)
+    pc, sn = (torch.from_numpy(rng.standard_normal(
+        (2, cfg.input_pc_num, 3)).astype(np.float32)) for _ in range(2))
+    node = torch.from_numpy(rng.standard_normal(
+        (2, cfg.node_num, 3)).astype(np.float32))
+
+    def forward():
+        with torch.no_grad():
+            return model(pc, sn, node)[1].som_node
+
+    plain, real = forward(), encoder.segment_sums
+    with probe.installed(("cluster",)) as rounding:
+        rounded = forward()
+        assert rounding.calls == {"bmm": 1, "centers": 1}
+    assert encoder.segment_sums is real and encoder.torch is torch
+    assert not torch.equal(plain, rounded)
+    assert (plain - rounded).abs().max() <= 1e-2 * plain.abs().max()
+
+
 def _bf16_model():
     from sonet_torch.config import tiny_test
     from sonet_torch.models import build_model

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where node pooling's backward and the batched products spend their
-device time in a full-width train step on one NVIDIA GPU.
+"""Where node pooling's backward, node recentering's sums and the batched
+products spend their device time in a full-width train step on one NVIDIA
+GPU.
 
     python3 tools/torch_pool_grad_probe.py [--preset modelnet40] [--steps 5]
 
@@ -16,6 +17,10 @@ so it reads any tree of the port.  Per step it prints:
   kernels it launched, by name, with their device time;
 * the kernels launched inside the backward's range, by name, with their
   device time;
+* the kernels launched by the operator ``sonet_torch::segment_sums`` (node
+  recentering's counts and sums over node-sorted rows), where the tree has
+  it; a tree without it makes that product an ``aten::bmm`` of
+  ``[B, M, kN] x [B, kN, 3]``;
 * the device time of every kernel of the step.
 
 The last line is a JSON object of the readings (ms a step).
@@ -29,6 +34,7 @@ import sys
 from collections import defaultdict
 
 RANGE = "probe:route_max_grad"
+SUMS_OP = "sonet_torch::segment_sums"
 
 
 def _kernels_under(ev):
@@ -95,6 +101,7 @@ def main(argv=None) -> int:
     n = args.steps
     bmm = defaultdict(lambda: defaultdict(float))
     pool = defaultdict(float)
+    sums = defaultdict(float)
     calls = defaultdict(int)
     total = 0.0
     for ev in prof.events():
@@ -107,6 +114,10 @@ def main(argv=None) -> int:
             calls[RANGE] += 1
             for name, us in _kernels_under(ev):
                 pool[name] += us
+        elif ev.name == SUMS_OP and ev.device_type == DeviceType.CPU:
+            calls[SUMS_OP] += 1
+            for name, us in _kernels_under(ev):
+                sums[name] += us
         # the device rows of ranges (kineto's annotations) are no work
         if (ev.device_type == DeviceType.CUDA
                 and not ev.name.startswith(("probe:", "sonet:"))):
@@ -115,7 +126,8 @@ def main(argv=None) -> int:
     print(f"{args.preset} train step, B={cfg.batch_size}, on {card}: "
           f"{total / n / 1e3:.4f} ms of kernels a step", flush=True)
     result = {"preset": args.preset, "card": card,
-              "step_kernel_ms": total / n / 1e3, "bmm": {}, "pool_grad": {}}
+              "step_kernel_ms": total / n / 1e3, "bmm": {}, "pool_grad": {},
+              "segment_sums": {}}
     for key, names in sorted(bmm.items(), key=lambda kv: -sum(
             kv[1].values())):
         ms = sum(names.values()) / n / 1e3
@@ -130,6 +142,12 @@ def main(argv=None) -> int:
     for name, us in sorted(pool.items(), key=lambda kv: -kv[1]):
         print(f"    {us / n / 1e3:.4f} ms  {name[:120]}", flush=True)
     result["pool_grad"] = {name: us / n / 1e3 for name, us in pool.items()}
+    ms = sum(sums.values()) / n / 1e3
+    print(f"{SUMS_OP}: {calls[SUMS_OP] / n:g} a step, {ms:.4f} ms",
+          flush=True)
+    for name, us in sorted(sums.items(), key=lambda kv: -kv[1]):
+        print(f"    {us / n / 1e3:.4f} ms  {name[:120]}", flush=True)
+    result["segment_sums"] = {name: us / n / 1e3 for name, us in sums.items()}
     print(json.dumps(result), flush=True)
     return 0
 

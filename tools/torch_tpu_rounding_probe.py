@@ -18,8 +18,9 @@ card, as the JAX package does on a CPU.  ``--round`` picks them (default
   point-to-node top-k assignment and the kNN graph of the nodes;
 * ``cluster``: the one-hot cluster sum of the stacked points
   (``sonet_tpu/nn/encoder.py:173``, ``einsum("bnm,bnc->bmc", onehot,
-  xs)``) and the per-point centers, a one-hot product of the cluster
-  means there (``:179``), a gather here;
+  xs)``; here a ``bmm`` on the scatter path and ``segment_sums`` on the
+  sorted one, the card's) and the per-point centers, a one-hot product of
+  the cluster means there (``:179``), a gather here;
 * ``som``: ``a . b`` of the distances inside the SOM fit
   (``sonet_tpu/som/som.py:89`` ``batch_update`` and ``:158`` ``query``
   call ``pairwise_sqdist``), which ``prep som`` runs on the TPU for the
@@ -96,9 +97,12 @@ class RoundingTorch:
     """``torch`` as the encoder module sees it: ``bmm`` (the cluster sum,
     the encoder's only one) takes its point operand in bfloat16, and the
     ``gather`` that follows it (the centers) gathers bfloat16-rounded
-    means; everything else is ``torch``'s.  It checks what it rounds
-    against the shapes the encoder gives those two calls, and raises when
-    the encoder no longer makes them so (``calls`` counts them)."""
+    means; everything else is ``torch``'s.  ``segment_sums``, the sorted
+    pipeline's cluster sum, takes its points in bfloat16 as ``bmm`` does
+    (``installed`` puts it in the encoder's ``segment_sums``).  It checks
+    what it rounds against the shapes the encoder gives those calls, and
+    raises when the encoder no longer makes them so (``calls`` counts
+    them, either cluster sum as ``bmm``)."""
 
     def __init__(self, calls=None):
         self._means_shape = None
@@ -113,6 +117,16 @@ class RoundingTorch:
         self._means_shape = (b, m, points.shape[2])
         self.calls["bmm"] += 1
         return torch.bmm(onehot_t, _bf16(points))
+
+    def segment_sums(self, seg_ids, points, num_segments):
+        from sonet_torch.ops import segment_sums
+        if self._means_shape is not None:
+            raise RuntimeError("rounding probe: the encoder's segment_sums "
+                               "is no longer the cluster sum")
+        counts, sums = segment_sums(seg_ids, _bf16(points), num_segments)
+        self._means_shape = tuple(sums.shape)
+        self.calls["bmm"] += 1
+        return counts, sums
 
     def gather(self, source, dim, index, *args, **kwargs):
         if self._means_shape is not None:
@@ -255,7 +269,9 @@ def installed(names=DEFAULT):
     if "pairwise" in names:
         patches.append((pairwise, "pairwise_sqdist", rounded_sqdist))
     if "cluster" in names:
-        patches.append((encoder, "torch", RoundingTorch(probe.calls)))
+        rounding = RoundingTorch(probe.calls)
+        patches += [(encoder, "torch", rounding),
+                    (encoder, "segment_sums", rounding.segment_sums)]
     if "som" in names:
         patches.append(_som_sqdist(probe.calls))
     if "head" in names:
