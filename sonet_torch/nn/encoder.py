@@ -1,11 +1,12 @@
 """The shared SO-Net encoder (port of the JAX package's ``nn/encoder.py``).
 
 Pipeline (channel-last): top-k point->node assignment, k-stacked points,
-cluster-mean node recentering, decentered PointResNet over kN points,
-segment-max node pooling, kNN aggregation over nodes, final PointNet,
-global max over nodes with first-winner gradient routing.  Train or eval
-follows ``nn.Module.training``; ``epoch`` drives the BatchNorm momentum
-decay in training.
+cluster-mean node recentering (together the point-to-node grouping, the
+profiler range ``sonet:grouping``), decentered PointResNet over kN
+points, segment-max node pooling, kNN aggregation over nodes, final
+PointNet, global max over nodes with first-winner gradient routing.
+Train or eval follows ``nn.Module.training``; ``epoch`` drives the
+BatchNorm momentum decay in training.
 
 With ``pooling="sorted_window"`` the stacked points are sorted by node
 once per forward: the node counts and cluster sums run through the CUDA
@@ -45,8 +46,11 @@ from ..config import Config
 from ..ops import (assign_topk, knn, one_hot, segment_max, segment_max_fast,
                    segment_sums)
 from ..parallel import collectives
+from ..utils.spans import span
 from .layers import (KNNModule, PointLayer, PointNetMLP, PointResNet,
                      recomputation)
+
+GROUPING = "sonet:grouping"
 
 
 def resolve_pooling(cfg: Config, device: torch.device | str) -> str:
@@ -139,60 +143,63 @@ class Encoder(nn.Module):
         if cfg.surface_normal and sn is None:
             raise ValueError("cfg.surface_normal is set but sn is None")
 
-        # -- point -> node top-k assignment --------------------------------
-        assign = assign_topk(pc, node, k)
-        min_idx = assign.min_idx                       # (B, kN) int32
+        # -- the point -> node grouping: top-k assignment, the k-stacked
+        # points (node-sorted on the sorted path), the one-hot, the node
+        # counts and cluster means, the decentered points; one range
+        with span(GROUPING):
+            assign = assign_topk(pc, node, k)
+            min_idx = assign.min_idx                   # (B, kN) int32
+            x_stack = pc.repeat(1, k, 1)               # (B, kN, D)
+            sn_stack = sn.repeat(1, k, 1) if sn is not None else None
 
-        # -- stack k copies of the cloud ------------------------------------
-        x_stack = pc.repeat(1, k, 1)                   # (B, kN, D)
-        sn_stack = sn.repeat(1, k, 1) if sn is not None else None
+            sort_points = resolve_pooling(cfg, pc.device) == "sorted_window"
+            if sort_points:
+                # stable sort by node; xyz and normals follow by gather
+                id0 = min_idx[:, :1].long()            # node of point 0
+                min_idx, perm = torch.sort(min_idx, dim=1, stable=True)
+                inv_perm = torch.empty_like(perm)
+                inv_perm.scatter_(1, perm, torch.arange(
+                    perm.shape[1], device=perm.device).expand_as(perm))
+                rows = perm[..., None].expand(-1, -1, D)
+                x_stack = torch.gather(x_stack, 1, rows)
+                if sn_stack is not None:
+                    sn_stack = torch.gather(sn_stack, 1, rows)
+                # the sort is stable and point 0 is the first original point
+                # of its node, so its sorted position is the node's first
+                # slot
+                point0_idx = torch.searchsorted(
+                    min_idx, id0.to(min_idx.dtype), side="left")[:, 0]
+            else:
+                perm = inv_perm = point0_idx = None
 
-        sort_points = resolve_pooling(cfg, pc.device) == "sorted_window"
-        if sort_points:
-            # stable sort by node; xyz and normals follow by gather
-            id0 = min_idx[:, :1].long()                # node of stacked point 0
-            min_idx, perm = torch.sort(min_idx, dim=1, stable=True)
-            inv_perm = torch.empty_like(perm)
-            inv_perm.scatter_(1, perm, torch.arange(
-                perm.shape[1], device=perm.device).expand_as(perm))
-            rows = perm[..., None].expand(-1, -1, D)
-            x_stack = torch.gather(x_stack, 1, rows)
-            if sn_stack is not None:
-                sn_stack = torch.gather(sn_stack, 1, rows)
-            # the sort is stable and point 0 is the first original point of
-            # its node, so its sorted position is the node's first slot
-            point0_idx = torch.searchsorted(min_idx, id0.to(min_idx.dtype),
-                                            side="left")[:, 0]
-        else:
-            perm = inv_perm = point0_idx = None
+            # the one-hot is in the compute dtype (exact 0/1); the scatter
+            # path's sums below and the segmenter's skip gathers read it
+            oh_dtype = compute_dtype(cfg) or torch.float32
+            onehot = one_hot(min_idx, M, oh_dtype)     # (B, kN, M)
+            split = collectives.axis_size("points") > 1
+            # node counts and coordinate sums in f32: over node-sorted rows
+            # each node is a run that segment_sums adds up (the kernel on a
+            # card), else through the one-hot
+            if sort_points:
+                counts, cluster_sum = segment_sums(min_idx, x_stack.float(),
+                                                   M)
+            else:
+                counts = onehot.sum(1, dtype=torch.float32)
+                cluster_sum = torch.bmm(onehot.float().transpose(1, 2),
+                                        x_stack.float())
+            # under a split points axis: the sums over every rank's points
+            counts = collectives.reduce_points(counts)  # (B, M)
+            mask_row_max = ((counts > 0) if sort_points or split
+                            else assign.mask_row_max)
 
-        # the one-hot is in the compute dtype (exact 0/1); the scatter
-        # path's sums below and the segmenter's skip gathers read it
-        oh_dtype = compute_dtype(cfg) or torch.float32
-        onehot = one_hot(min_idx, M, oh_dtype)         # (B, kN, M)
-        split = collectives.axis_size("points") > 1
-        # node counts and coordinate sums in f32: over node-sorted rows each
-        # node is a run that segment_sums adds up (the kernel on a card),
-        # else through the one-hot
-        if sort_points:
-            counts, cluster_sum = segment_sums(min_idx, x_stack.float(), M)
-        else:
-            counts = onehot.sum(1, dtype=torch.float32)
-            cluster_sum = torch.bmm(onehot.float().transpose(1, 2),
-                                    x_stack.float())
-        # under a split points axis: the sums over every rank's points
-        counts = collectives.reduce_points(counts)     # (B, M)
-        mask_row_max = ((counts > 0) if sort_points or split
-                        else assign.mask_row_max)
+            # the nodes recentered to the actual cluster means
+            cluster_sum = collectives.reduce_points(cluster_sum)
+            som_node = cluster_sum / (counts[..., None] + 1e-5)  # (B, M, D)
 
-        # -- recenter nodes to the actual cluster means ----------------------
-        cluster_sum = collectives.reduce_points(cluster_sum)
-        som_node = cluster_sum / (counts[..., None] + 1e-5)   # (B, M, D)
-
-        # -- per-point centers and decentering -------------------------------
-        centers = torch.gather(
-            som_node, 1, min_idx.long()[..., None].expand(-1, -1, D))
-        x_decentered = x_stack - centers
+            # per-point centers and decentering
+            centers = torch.gather(
+                som_node, 1, min_idx.long()[..., None].expand(-1, -1, D))
+            x_decentered = x_stack - centers
 
         # -- first PointNet over the kN points -------------------------------
         if cfg.surface_normal:

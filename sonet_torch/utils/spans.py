@@ -24,6 +24,11 @@ The program's spans, and what reads them:
   of the kernels the range's ops launch and of those their backward ops
   launch (``benchmark/span_time.py``, ``decoder_device_ms.train`` and
   ``chamfer_device_ms.train``).
+* ``sonet:grouping`` (``nn/encoder.py``): the encoder's point-to-node
+  grouping, from the top-k assignment to the decentered points (the
+  node-sorted rows, the node counts and cluster sums, the recentered
+  nodes).  Recorded at a capture only, as the decoder's range, and read
+  the same way (``grouping_device_ms.train``).
 
 Counters: ``ops.chamfer.calls`` (an attribute of the function, as
 ``windowed_vals.launches`` is), the Chamfer calls by (predicted points,

@@ -1678,3 +1678,108 @@ def test_segment_sums_engage_once_an_encoder_forward(cuda_device,
     graph(**batch)
     torch.cuda.synchronize()
     assert ss.segment_sums.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the 2-D MNIST classifier through the device pipeline's captured epoch
+# ---------------------------------------------------------------------------
+
+def _mnist_device_epoch(device, items=24):
+    """``config.mnist()`` at full width (bf16, B=8, N=512 of 512 2-D points
+    without normals, M=25, k=3, som_k=9) as the device pipeline trains it:
+    a resident split of ``items`` stroke clouds with nodes, ``init_state``
+    with a capturable Adam, and an ``EpochGraph`` over ``make_steps``'
+    train step with ``sample_batch``.  Returns (the graph, the eager step,
+    the split, the state)."""
+    from sonet_torch.data import device_pipeline as dp
+    from sonet_torch.train.graphs import EpochGraph
+    cfg = config.mnist()
+    g = torch.Generator().manual_seed(0)
+    t = torch.rand((items, 512, 1), generator=g) * 2 * np.pi
+    freq = (torch.arange(items) % 5 + 1).float()[:, None, None]
+    pc = torch.cat([torch.sin(freq * t), torch.cos(t)], -1) \
+        + 0.03 * torch.randn((items, 512, 2), generator=g)
+    node = pc[:, :cfg.node_num] + 0.05 * torch.randn(
+        (items, cfg.node_num, 2), generator=g)
+    data = dp.DeviceData(pc=pc.to(device), sn=None, node=node.to(device),
+                         label=(torch.arange(items) % 10).to(device))
+    state = train.init_state(cfg, device=device, seed=0, steps_per_epoch=10)
+    train.state.set_capturable(state.optimizer, True)
+    step_fn, _ = train.make_steps(cfg, 10)
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def step(d, idx):
+        return step_fn(state, dp.sample_batch(d, idx, gen, cfg, train=True),
+                       gen)[1]
+
+    def advance():
+        state.step += 1
+    graph = EpochGraph(step, device, generators=(gen,),
+                       snapshot=lambda: train.state.snapshot(state),
+                       on_replay=advance)
+    return graph, step, data, state
+
+
+def _kernel_counters():
+    return (smw.windowed_vals.launches, smg.segment_max_grad.launches,
+            ss.segment_sums.launches, dict(bna.launches))
+
+
+def test_mnist_step_engages_every_kernel_once_a_python_run_step(
+        cuda_device, monkeypatch):
+    """The full-width 2-D MNIST train step captured by ``EpochGraph``: the
+    capture's two Python-run steps (the warm-up and the capture) each
+    launch kernel 1 once, at (8, 1,536, 384) with M=25, node pooling's
+    backward once, the segment sums once, and every BatchNorm's fused
+    kernels once forward and once backward; the replays launch nothing
+    from the host, and a second part replays the same graph."""
+    graph, _, data, state = _mnist_device_epoch(cuda_device)
+    norms = [m for m in state.model.modules()
+             if isinstance(m, nn_layers.BatchNorm)]
+    shapes, real = [], smw._kernel
+
+    def recording(*args):                  # the C function: B, N, C, M
+        shapes.append(tuple(args[4:8]))
+        return real(*args)
+    monkeypatch.setattr(smw, "_kernel", recording)
+    k0, g0, s0, b0 = _kernel_counters()
+    out = graph.run(data, np.arange(24).reshape(3, 8))
+    torch.cuda.synchronize()
+    k1, g1, s1, b1 = _kernel_counters()
+    ran = k1 - k0
+    assert graph.captures == 1 and graph.replays == 3 and ran == 2
+    assert np.isfinite(out["loss"]).all() and state.step == 3
+    assert g1 - g0 == ran and s1 - s0 == ran
+    assert {m: b1[m] - b0[m] for m in b0} == {
+        "train": ran * len(norms), "eval": 0, "backward": ran * len(norms)}
+    assert set(shapes) == {(8, 1536, 384, 25)}
+    graph.run(data, np.arange(16).reshape(2, 8))
+    torch.cuda.synchronize()
+    assert graph.captures == 1 and graph.replays == 5
+    assert _kernel_counters() == (k1, g1, s1, b1)
+
+
+def test_mnist_grouping_range_in_a_profiled_eager_step(cuda_device):
+    """``sonet:grouping`` appears once in a profiled eager 2-D step, and the
+    device rows its ops and their backward launched include the segment
+    sums and the node sort."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import span_time
+    from sonet_torch.nn.encoder import GROUPING
+    _, step, data, _ = _mnist_device_epoch(cuda_device)
+    idx = torch.arange(8, device=cuda_device)
+    step(data, idx)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(data, idx)
+        torch.cuda.synchronize()
+    ev = span_time.collect(prof)
+    assert sum(o.name == GROUPING for o in ev.ops) == 1
+    fwd, bwd = span_time.span_ops(ev, GROUPING, 0, 2 ** 63)
+    corr = {o.corr for o in fwd + bwd}
+    rows = [name for name, _, _, c in ev.rows if c in corr]
+    assert any("segment_sums" in r for r in rows), rows
+    assert any("sort" in r.lower() for r in rows), rows
+    assert span_time.span_device_s(ev, GROUPING, 0, 2 ** 63) > 0

@@ -10,6 +10,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from sonet_torch import config
 from sonet_torch.data.device_pipeline import DeviceData, sample_batch
+from sonet_torch.nn.encoder import GROUPING
 from sonet_torch.train import init_state, make_steps
 from sonet_torch.train import graphs
 from sonet_torch.train.state import snapshot
@@ -71,7 +72,8 @@ def test_one_replay_range_a_row_and_the_same_metrics(one_thread):
     restore()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         traced = graph.run(data, table)
-    assert _sonet_ranges(prof) == [graphs.REPLAY] * ROWS
+    # each step's encoder forward marks its point-to-node grouping
+    assert _sonet_ranges(prof) == [graphs.REPLAY, GROUPING] * ROWS
     assert set(plain) == set(traced) and plain
     for k in plain:
         np.testing.assert_array_equal(plain[k], traced[k])
@@ -92,7 +94,7 @@ def test_span_enters_no_profiler_code_when_off(monkeypatch):
     restore()
     with profile(activities=[ProfilerActivity.CPU]):
         graph.run(data, table)
-    assert entered == [graphs.REPLAY] * ROWS
+    assert entered == [graphs.REPLAY, GROUPING] * ROWS
 
 
 def _tiny_autoencode_step():
@@ -120,7 +122,8 @@ def test_decoder_and_chamfer_ranges_and_counter(one_thread):
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         step()
     # the decoder's forward, then the final cloud's and pc4's Chamfer loss
-    assert _sonet_ranges(prof) == [DECODER, "sonet:chamfer", "sonet:chamfer"]
+    assert _sonet_ranges(prof) == [GROUPING, DECODER, "sonet:chamfer",
+                                   "sonet:chamfer"]
     grew = {k: v - before.get(k, 0) for k, v in chamfer.calls.items()
             if v != before.get(k, 0)}
     assert grew == {final: 1, pc4: 1}
@@ -140,4 +143,40 @@ def test_decoder_and_chamfer_spans_enter_no_profiler_code_when_off(
     assert entered == []
     with profile(activities=[ProfilerActivity.CPU]):
         step()
-    assert entered == ["sonet:decoder", "sonet:chamfer", "sonet:chamfer"]
+    assert entered == [GROUPING, "sonet:decoder", "sonet:chamfer",
+                       "sonet:chamfer"]
+
+
+@pytest.mark.parametrize("pooling", ["scatter", "sorted_window"])
+def test_grouping_range_holds_the_grouping(pooling, one_thread):
+    """A 2-D MNIST forward (no normals) marks its point-to-node grouping
+    once: the top-k assignment's sort, the node counts and cluster sums
+    (the segment sums on the sorted path, the one-hot product on the
+    scatter path) lie inside the range; the first PointNet's products and
+    node pooling lie after it; the range changes no output."""
+    from sonet_torch.models import build_model
+    cfg = config.mnist().replace(batch_size=2, input_pc_num=64, node_num=9,
+                                 som_k=4, feature_num=64, pooling=pooling,
+                                 compute_dtype="float32", dropout=0.0)
+    model = build_model(cfg, device="cpu", seed=0).train()
+    g = torch.Generator().manual_seed(3)
+    pc = torch.rand((2, 64, 2), generator=g) * 2 - 1
+    node = pc[:, :9] + 0.01
+    plain, _ = model(pc, None, node, epoch=0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced, _ = model(pc, None, node, epoch=0)
+    torch.testing.assert_close(traced, plain, rtol=0, atol=0)
+    events = prof.events()
+    ranges = [e for e in events if e.name == GROUPING]
+    assert len(ranges) == 1
+    lo, hi = ranges[0].time_range.start, ranges[0].time_range.end
+    inside = {e.name for e in events
+              if lo <= e.time_range.start and e.time_range.end <= hi}
+    after = {e.name for e in events if e.time_range.start > hi}
+    assert "aten::sort" in inside
+    if pooling == "sorted_window":
+        assert "sonet_torch::segment_sums" in inside
+        assert "sonet_torch::segment_sums" not in after
+    else:
+        assert "aten::bmm" in inside
+    assert "aten::linear" not in inside and "aten::linear" in after
