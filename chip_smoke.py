@@ -49,7 +49,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    sums within 1e-5 of the absolute sums of their rows, two calls the
    same bits; timed by graph beside its bound, the plain version and the
    float32 one-hot ``bmm`` it replaces; its launches are counted on every
-   path, like kernel 1's: once in each encoder forward that Python runs;
+   path, like kernel 1's: once in each encoder forward that Python runs.
+   Adam's update (``adam_step``, both groups in one call) at each cell's
+   parameter set against ``torch.optim.Adam(foreach=True,
+   capturable=True)`` (``==``) and its plain version over three steps,
+   timed by graph beside its bound (28 bytes a parameter) and the foreach
+   Adam; its calls are counted on every path: once a train step that
+   Python runs, and on exactly the paths that run a backward;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
    width, seeded random weights) served through ``ServingEngine`` on the
    card, its forward a captured CUDA graph: the warm-up captures it
@@ -550,7 +556,8 @@ def phase_kernels():
             _check_segment_argmax(torch, gen, ids, M),
             *_check_batchnorm_act(torch, gen),
             _check_segment_max_grad(torch, gen, pool_ids),
-            _check_segment_sums(torch, gen, sums_ids)]
+            _check_segment_sums(torch, gen, sums_ids),
+            _check_adam_step(torch)]
 
 
 def host_us_per_call(fn, calls: int = 200) -> float:
@@ -1325,6 +1332,155 @@ def _check_segment_sums(torch, gen, ids_by_shape):
     return row
 
 
+# the cells' parameter sets, each updated by the Adam kernel
+ADAM_PRESETS = ("modelnet40", "shapenetpart", "autoencoder", "mnist")
+# the plain version on the card against the kernel, a parameter each
+# step: an ulp of it and 1e-6 of the largest update, lr (1 - beta1) /
+# sqrt(1 - beta2) (the plain version's per-tensor lerp and addcmul may
+# round an fma otherwise than ATen's foreach functors)
+ADAM_PLAIN_REL = 1e-6
+
+
+def _adam_twins(torch, cfg, dev):
+    """Three copies of ``cfg``'s parameters on the card, as a train step
+    leaves them (``.grad`` None where the model gives none), each under a
+    ``torch.optim.Adam`` of the port's two groups, the head's rate half the
+    encoder's: the reference (``foreach=True, capturable=True``), the
+    kernel's (``capturable``) and the plain version's.  Returns the
+    [(params, optimizer)] and the names without gradient."""
+    from sonet_torch.models import build_model
+    from sonet_torch.train import make_optimizer
+    model = build_model(cfg, device=dev, seed=0)
+    stopped = _no_gradient(model, cfg)
+    named = [(n, p.detach()) for n, p in model.named_parameters()]
+    sides = []
+    for kw in (dict(foreach=True, capturable=True), dict(capturable=True),
+               dict(capturable=True)):
+        twin = build_model(cfg, device=dev, seed=0)
+        twin.load_state_dict(model.state_dict())
+        opt, _ = make_optimizer(twin, cfg, 100)
+        for group in opt.param_groups:
+            group.update(kw)
+            group["lr"] = cfg.lr if group["name"] == "encoder" else cfg.lr / 2
+        sides.append(([p for _, p in twin.named_parameters()], opt))
+    return sides, [n for n, _ in named], stopped
+
+
+def _adam_state(opt, p):
+    st = opt.state.get(p, {})
+    return [st[k] for k in ("exp_avg", "exp_avg_sq", "step") if k in st]
+
+
+def _check_adam_step(torch):
+    """Adam's update (``csrc/adam_step.cu`` through
+    ``train.state.adam_update``) at each cell's parameter set
+    (``ADAM_PRESETS``, the tensors without gradient left out as a train
+    step leaves them): three steps against ``torch.optim.Adam(foreach=
+    True, capturable=True)``, parameters, moments and counters ``==``, and
+    against the plain version (``adam_step_plain``) on the card within
+    ``ADAM_PLAIN_REL``; then timed by graph replay beside its bound (28
+    bytes a parameter that has a gradient: p, g, m, v read, p, m, v
+    written), the plain version's and the foreach Adam's times by graph,
+    and its host time a call beside the foreach Adam's."""
+    import numpy as np
+    from sonet_torch import config
+    from sonet_torch.ops.cuda import adam_step as adam
+    from sonet_torch.train.state import adam_update
+    dev = torch.device("cuda")
+    row = {"name": "adam_step", "route": "cuda",
+           "source": "sonet_torch/csrc/adam_step.cu",
+           "replaces": "none (optax's Adam, fused by XLA on the TPU; the "
+                       "port's torch.optim.Adam foreach chain on the card)",
+           "launches": None, "library_ms": None, "shapes": {}}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for preset in ADAM_PRESETS:
+        cfg = getattr(config, preset)()
+        sides, names, stopped = _adam_twins(torch, cfg, dev)
+        (ref_p, ref), (our_p, ours), (pl_p, plain) = sides
+        live = [i for i, n in enumerate(names) if n not in stopped]
+        def plain_step():
+            args = [[], [], [], [], [], []]
+            for group in plain.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        continue
+                    st = plain.state[p]
+                    if not st:
+                        st.update(step=torch.zeros((), device=dev),
+                                  exp_avg=torch.zeros_like(p),
+                                  exp_avg_sq=torch.zeros_like(p))
+                    for a, t in zip(args, (p, p.grad, st["exp_avg"],
+                                           st["exp_avg_sq"], st["step"],
+                                           group["lr"])):
+                        a.append(t)
+            adam.adam_step_plain(*args, (0.9, 0.999), 1e-8)
+
+        for _ in range(3):
+            for i in live:
+                g = torch.randn(ref_p[i].shape, generator=gen, device=dev) \
+                    * 10.0 ** (i % 5 - 4)
+                ref_p[i].grad, our_p[i].grad, pl_p[i].grad = g, g.clone(), \
+                    g.clone()
+            ref.step()
+            adam_update(ours)
+            plain_step()
+        torch.cuda.synchronize()
+        differ = [names[i] for i in range(len(names))
+                  if not torch.equal(ref_p[i], our_p[i]) or not all(
+                      torch.equal(a, b.to(a.device)) for a, b in zip(
+                          _adam_state(ref, ref_p[i]),
+                          _adam_state(ours, our_p[i])))]
+        untouched = [names[i] for i in range(len(names)) if i not in live
+                     and (our_p[i] in ours.state
+                          or not torch.equal(our_p[i], pl_p[i]))]
+        worst = 0.0
+        for i in live:
+            lr = cfg.lr if names[i].startswith("encoder.") else cfg.lr / 2
+            want = our_p[i].detach().double()
+            room = 3 * (torch.from_numpy(np.spacing(np.abs(
+                want.cpu().numpy()).astype(np.float32))).to(dev).double()
+                + ADAM_PLAIN_REL * lr * 0.1 / 0.001 ** 0.5)
+            worst = max(worst, float(((pl_p[i].detach().double() - want)
+                                      .abs() / room).max()))
+        n_params = sum(our_p[i].numel() for i in live)
+        log(f"adam_step at {preset}: {len(live)} of {len(names)} tensors "
+            f"with a gradient, {n_params:,} parameters; 3 steps against the "
+            f"capturable foreach Adam: {len(differ)} tensors differ "
+            f"{differ[:4]}; the plain version's worst gap {worst:.3f} of its "
+            f"room; tensors without gradient touched or given state: "
+            f"{untouched}")
+        if differ or untouched or worst > 1:
+            raise AssertionError(f"adam_step at {preset}: differs from the "
+                                 f"foreach Adam at {differ}, from the plain "
+                                 f"version by {worst:.3f} of its room, "
+                                 f"touched {untouched}")
+        nbytes = 28 * n_params
+        bound_ms, bound_by = _bound(nbytes, 15 * n_params)
+        graph_ms = time_graph_ms(lambda: adam_update(ours), reps=20,
+                                 inner=10)
+        foreach_ms = time_graph_ms(ref.step, reps=20, inner=10)
+        plain_ms = time_graph_ms(plain_step, reps=10, inner=5)
+        host_us = host_us_per_call(lambda: adam_update(ours), calls=50)
+        foreach_host_us = host_us_per_call(ref.step, calls=50)
+        row["shapes"][preset] = {
+            "tensors": len(live), "parameters": n_params,
+            "graph_ms": graph_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "nbytes": nbytes, "plain_graph_ms": plain_ms,
+            "library_ms": foreach_ms, "host_us_per_call": host_us,
+            "library_host_us_per_call": foreach_host_us}
+        if preset == ADAM_PRESETS[0]:
+            row["library_ms"] = foreach_ms
+        log(f"adam_step at {preset}: {graph_ms:.4f} ms by graph replay, "
+            f"bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s): {bound_ms / graph_ms:.1%}; the "
+            f"plain version {plain_ms:.4f} ms and the capturable foreach "
+            f"Adam {foreach_ms:.4f} ms by graph; {host_us:.1f} us of host a "
+            f"call (the foreach Adam {foreach_host_us:.1f})")
+        del sides
+        torch.cuda.empty_cache()
+    return row
+
+
 # the fused BatchNorm's (rows, width) on the main path: the first
 # PointNet over 8 x 15,000 stacked points, the segmenter head's first
 # layer over 24,576, the kNN layer's 4,608 (two-pass) and a head's rank 2
@@ -1572,9 +1728,9 @@ def phase_serve(cfg, small, kernel_counters, on_path, profile_dir=None):
             or any(warm[n] != 2 for n in on_path)):
         raise AssertionError(f"the warm-up did not capture kernel 1 in the "
                              f"forward at {want_shape}: {shapes}, {warm}")
-    if warm["segment_max_grad"]:
-        raise AssertionError(f"the served forward ran pooling's backward: "
-                             f"{warm}")
+    if warm["segment_max_grad"] or warm["adam_step"]:
+        raise AssertionError(f"the served forward ran pooling's backward or "
+                             f"Adam's update: {warm}")
     _check_batchnorm_calls(norms, warm, 2, _served_norms(model, cfg),
                            "serving warm-up")
 
@@ -1804,7 +1960,7 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
     launches = _launch_counts(kernel_counters)
     log(f"{TRAIN_STEPS} train steps: losses {losses}; kernel launches "
         f"{launches}")
-    for n in (*on_path, "segment_max_grad"):
+    for n in (*on_path, "segment_max_grad", "adam_step"):
         if launches[n] != TRAIN_STEPS:
             raise AssertionError(f"{n} launched {launches[n]} times in "
                                  f"{TRAIN_STEPS} train steps, want one a step")
@@ -4454,16 +4610,17 @@ def _sharded_pooling_check(mesh, dev):
 
 def _mesh_counters():
     """Every kernel's launch counter by its row's name: kernels 1 and 2,
-    the fused BatchNorm by mode, node pooling's backward and node
-    recentering's segment sums."""
+    the fused BatchNorm by mode, node pooling's backward, node
+    recentering's segment sums and Adam's update."""
     from sonet_torch.ops.cuda.segment_argmax import segment_argmax
     from sonet_torch.ops.cuda.segment_max_grad import segment_max_grad
     from sonet_torch.ops.cuda.segment_max_window import windowed_vals
+    from sonet_torch.ops.cuda.adam_step import adam_step
     from sonet_torch.ops.cuda.segment_sums import segment_sums
     return {"segment_max_window": windowed_vals,
             "segment_argmax": segment_argmax, **batchnorm_counters(),
             "segment_max_grad": segment_max_grad,
-            "segment_sums": segment_sums}
+            "segment_sums": segment_sums, "adam_step": adam_step}
 
 
 def _planted_sync_grads(model, mesh):
@@ -5253,6 +5410,15 @@ def main(argv=None) -> int:
             finish_mesh_nccl(nccl, runs, card))
         by_path.update(mesh_launches)
         ran.update(mesh_ran)
+    # Adam's update ran on exactly the paths that ran a backward: every
+    # train path, and no serve, infer or export path
+    updated = {p for p, n in by_path.items() if n["adam_step"]}
+    backward = {p for p, n in by_path.items() if n["segment_max_grad"]}
+    calls = {p: by_path[p]["adam_step"] for p in sorted(updated)}
+    log(f"Adam's update calls by path: {calls}")
+    if updated != backward:
+        raise AssertionError(f"Adam's update ran on {sorted(updated)}, a "
+                             f"backward on {sorted(backward)}")
     # every shape kernel 1 was called at after phase 3, checks at small
     # widths included, for the rule-2 watch of phase 3's readings
     log(f"kernel 1 calls by (B, N, C, M) over the paths: {shapes}")

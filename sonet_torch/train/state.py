@@ -6,6 +6,13 @@ head.  Each group follows the reference's halving schedule, the encoder's
 scaled by ``pretrain_lr_ratio`` when a pretrain path is set.  As with
 optax, the learning rate of an update is the schedule's value at the
 number of updates made before it.
+
+On a card the update of both groups is one call of the hand-written
+kernel ``ops.cuda.adam_step`` (``adam_update``), which gives the bits of
+the capturable foreach Adam; ``torch.optim.Adam`` still holds the state
+(``exp_avg``, ``exp_avg_sq``, ``step``), so checkpoints, ``snapshot`` and
+``set_capturable`` see what they saw.  On the CPU ``optimizer.step()``
+runs.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from torch import nn
 
 from ..config import Config
 from ..models import build_model
+from ..ops.cuda.adam_step import adam_step
 
 Schedule = Callable[[int], float]
 
@@ -72,11 +80,62 @@ class TrainState:
         """One Adam update from the gradients in the parameters' ``.grad``,
         at each group's rate for the current step; then step += 1.  A
         parameter whose ``.grad`` is None (a bias that a BatchNorm follows)
-        is left exactly as it is, as a zero gradient leaves it in optax."""
+        is left exactly as it is, as a zero gradient leaves it in optax.
+        Parameters on a card take ``adam_update``, on the CPU
+        ``optimizer.step()``."""
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedules[group["name"]](self.step)
-        self.optimizer.step()
+        if next(self.model.parameters()).is_cuda:
+            adam_update(self.optimizer)
+        else:
+            self.optimizer.step()
         self.step += 1
+
+
+def adam_update(optimizer: torch.optim.Adam) -> None:
+    """``optimizer.step()`` for parameters on a card, in one call of
+    ``ops.cuda.adam_step`` over both groups: each parameter with a
+    gradient, at its group's rate.  A parameter's state is made at its
+    first gradient as ``Adam`` makes it (zero moments; a float32 counter on
+    the device when the group is capturable, on the host when not); one
+    whose ``.grad`` is None is neither touched nor given state.  Raises on
+    a group with weight decay, amsgrad or maximize, or with betas or eps
+    other than another group's."""
+    groups = optimizer.param_groups
+    for group in groups:
+        if (group["weight_decay"] or group["amsgrad"] or group["maximize"]
+                or group["differentiable"]):
+            raise ValueError(f"adam_update: group {group.get('name')} asks "
+                             "for weight decay, amsgrad, maximize or a "
+                             "differentiable step, which adam_step does not "
+                             "compute")
+    shared = {(tuple(g["betas"]), g["eps"]) for g in groups}
+    if len(shared) != 1:
+        raise ValueError(f"adam_update: the groups' betas and eps differ: "
+                         f"{sorted(shared)}")
+    params, grads, exp_avgs, exp_avg_sqs, steps, lrs = ([] for _ in range(6))
+    for group in groups:
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            state = optimizer.state[p]
+            if not state:
+                state["step"] = (
+                    torch.zeros((), dtype=torch.float32, device=p.device)
+                    if group["capturable"] else torch.tensor(0.0))
+                state["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            params.append(p)
+            grads.append(p.grad)
+            exp_avgs.append(state["exp_avg"])
+            exp_avg_sqs.append(state["exp_avg_sq"])
+            steps.append(state["step"])
+            lrs.append(group["lr"])
+    if params:
+        adam_step(params, grads, exp_avgs, exp_avg_sqs, steps, lrs,
+                  *shared.pop())
 
 
 def set_capturable(optimizer: torch.optim.Optimizer, flag: bool) -> None:

@@ -28,7 +28,8 @@ _BUCKETS = (
         r"segment_argmax_keys|clear_keys|unpack_keys)\b")),
     ("copies and memsets", re.compile(
         r"^(Memcpy|Memset)|direct_copy_kernel|CatArrayBatchedCopy")),
-    # torch.optim.Adam's foreach updates: the only multi-tensor kernels
+    # Adam's update: csrc/adam_step.cu on a card (torch.optim.Adam's
+    # foreach multi-tensor kernels where it runs)
     ("Adam", re.compile(r"[Aa]dam|multi_tensor_apply_kernel")),
     # the stable sort of the points and its helpers (not searchsorted)
     ("sorts", re.compile(r"(?<!search)[Ss]ort|fill_index_and_segment")),

@@ -33,9 +33,13 @@ The program's spans, and what reads them:
 Counters: ``ops.chamfer.calls`` (an attribute of the function, as
 ``windowed_vals.launches`` is), the Chamfer calls by (predicted points,
 input points), counted where Python runs them (in a CUDA graph at its
-capture), beside ``ops.cuda.batchnorm_act.launches`` and
+capture), beside ``ops.cuda.batchnorm_act.launches``,
 ``ops.cuda.segment_max_grad.segment_max_grad.launches`` (node pooling's
-backward on a card: one call, a launch of each of its two kernels).
+backward on a card: one call, a launch of each of its two kernels),
+``ops.cuda.segment_sums.segment_sums.launches`` (node recentering's sums
+on a card) and ``ops.cuda.adam_step.adam_step.launches`` (Adam's update
+of both groups on a card: one call a train step that Python runs, none
+on a serve, infer or export path).
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ from sonet_torch.nn import layers as nn_layers
 from sonet_torch import ops as seg_ops
 from sonet_torch.ops import segment as seg
 from sonet_torch.ops.cuda import batchnorm_act as bna
+from sonet_torch.ops.cuda import adam_step as adam
 from sonet_torch.ops.cuda import segment_argmax as sam
 from sonet_torch.ops.cuda import segment_max_grad as smg
 from sonet_torch.ops.cuda import segment_max_window as smw
@@ -1783,3 +1784,209 @@ def test_mnist_grouping_range_in_a_profiled_eager_step(cuda_device):
     assert any("segment_sums" in r for r in rows), rows
     assert any("sort" in r.lower() for r in rows), rows
     assert span_time.span_device_s(ev, GROUPING, 0, 2 ** 63) > 0
+
+
+# ---------------------------------------------------------------------------
+# Adam's update of both groups: csrc/adam_step.cu
+# ---------------------------------------------------------------------------
+
+ADAM_ODD_SHAPES = ((0,), (1,), (3,), (5, 7), (1023,), (1025,), (4097, 3),
+                   (64, 1, 3), (129,))
+
+
+def _like(t, unaligned):
+    """A copy of ``t``, contiguous, placed 4 bytes past a 16-byte boundary
+    when ``unaligned``."""
+    if not unaligned:
+        return t.clone()
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _adam_groups_on(kind, device):
+    """(encoder tensors, head tensors, which to place unaligned): a
+    modelnet40 model's parameters by group, odd sizes with every third
+    tensor unaligned, or 300 small tensors (three launches)."""
+    g = torch.Generator(device=device).manual_seed(1)
+    if kind == "modelnet40":
+        model = build_model(config.modelnet40(), device=device, seed=0)
+        named = [(n, p.detach()) for n, p in model.named_parameters()]
+        enc = [p for n, p in named if n.startswith("encoder.")]
+        head = [p for n, p in named if not n.startswith("encoder.")]
+        return enc, head, set()
+    shapes = (ADAM_ODD_SHAPES if kind == "odd" else
+              [((i * 37) % 600 + 1,) for i in range(300)])
+    ts = [torch.randn(s, generator=g, device=device) for s in shapes]
+    unaligned = {i for i in range(len(ts)) if kind == "odd" and i % 3 == 1}
+    half = len(ts) // 2
+    return ts[:half], ts[half:], unaligned
+
+
+def _adam_twins(groups, unaligned, lrs, capturable):
+    """The reference, ``torch.optim.Adam(foreach=True, capturable=True)``,
+    and the kernel's optimizer (a plain ``torch.optim.Adam`` holding the
+    state, ``capturable`` as asked), each over its own copy of the
+    tensors, both groups at their own rate."""
+    flat = [t for grp in groups for t in grp]
+    sides = []
+    for opts in (dict(foreach=True, capturable=True),
+                 dict(capturable=capturable)):
+        ps = [torch.nn.Parameter(_like(t, i in unaligned))
+              for i, t in enumerate(flat)]
+        n0 = len(groups[0])
+        opt = torch.optim.Adam(
+            [{"params": ps[:n0], "lr": lrs[0], "name": "encoder"},
+             {"params": ps[n0:], "lr": lrs[1], "name": "head"}],
+            betas=(0.9, 0.999), eps=1e-8, **opts)
+        sides.append((ps, opt))
+    return sides
+
+
+def _adam_gaps(ref, ours):
+    """{what: (tensors that differ, their largest gap in ulps)} over the
+    parameters, moments and counters of two (params, optimizer) sides."""
+    gaps = {}
+    (pr, opt_r), (po, opt_o) = ref, ours
+    for a, b in zip(pr, po):
+        pairs = [("param", a.detach(), b.detach())]
+        if a in opt_r.state or b in opt_o.state:
+            sa, sb = opt_r.state[a], opt_o.state[b]
+            pairs += [(k, sa[k], sb[k].to(sa[k].device))
+                      for k in ("exp_avg", "exp_avg_sq", "step")]
+        for what, x, y in pairs:
+            if not torch.equal(x, y):
+                d = (x.double() - y.double()).abs()
+                ulp = torch.from_numpy(np.spacing(np.abs(
+                    x.float().cpu().numpy()))).to(x.device).double()
+                n, worst = gaps.get(what, (0, 0.0))
+                gaps[what] = (n + 1, max(worst, float((d / ulp).max())))
+    return gaps
+
+
+@pytest.mark.parametrize("capturable", [True, False])
+@pytest.mark.parametrize("kind", ["modelnet40", "odd", "many"])
+def test_adam_step_equals_capturable_foreach_adam_bit_for_bit(
+        cuda_device, kind, capturable):
+    """Three updates of both groups at different rates through
+    ``adam_update`` (the kernel; counters on the card, or on the host for
+    an eager Adam) against ``torch.optim.Adam(foreach=True,
+    capturable=True)`` on the same tensors and gradients: the same
+    parameters, moments and counters, bit for bit, on the classifier's
+    parameters, on odd sizes (tails, empty, unaligned tensors: the scalar
+    path) and on 300 tensors (three launches); one call a step."""
+    enc, head, unaligned = _adam_groups_on(kind, cuda_device)
+    ref, ours = _adam_twins((enc, head), unaligned, (1e-3, 3e-4), capturable)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    before = adam.adam_step.launches
+    for k in range(3):
+        for i, (a, b) in enumerate(zip(ref[0], ours[0])):
+            grad = torch.randn(a.shape, generator=gen, device=cuda_device) \
+                * 10.0 ** (i % 5 - 3)
+            a.grad, b.grad = _like(grad, i in unaligned), \
+                _like(grad, i in unaligned)
+        ref[1].step()
+        train.state.adam_update(ours[1])
+    torch.cuda.synchronize()
+    assert adam.adam_step.launches - before == 3
+    assert _adam_gaps(ref, ours) == {}
+    where = "cuda" if capturable else "cpu"
+    assert all(st["step"].device.type == where and float(st["step"]) == 3
+               for st in ours[1].state.values())
+
+
+def test_adam_update_leaves_a_parameter_without_gradient_alone(cuda_device):
+    """A parameter whose ``.grad`` is None is neither touched nor given
+    state, in either group; the others match the foreach Adam's bits."""
+    enc, head, _ = _adam_groups_on("odd", cuda_device)
+    ref, ours = _adam_twins((enc, head), set(), (1e-3, 3e-4), True)
+    skip = {2, len(enc) + 1}
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for _ in range(2):
+        for i, (a, b) in enumerate(zip(ref[0], ours[0])):
+            grad = torch.randn(a.shape, generator=gen, device=cuda_device)
+            a.grad = b.grad = None if i in skip else grad
+        ref[1].step()
+        train.state.adam_update(ours[1])
+    torch.cuda.synchronize()
+    for i in skip:
+        assert ours[0][i] not in ours[1].state
+        assert torch.equal(ours[0][i].detach(), (enc + head)[i])
+    assert _adam_gaps(ref, ours) == {}
+
+
+def test_adam_step_launches_once_a_python_run_step(cuda_device):
+    """The full-width modelnet40 train step, eager and captured: the eager
+    step, the capture's warm-up and the capture each call the kernel once;
+    a replay calls nothing from the host, and its trace holds the kernel
+    and no foreach ``multi_tensor_apply_kernel``; the replayed step's
+    parameters are the eager step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sonet_torch.train.graphs import StepGraph
+    cfg = config.modelnet40().replace(dropout=0.0)
+    state = train.init_state(cfg, device=cuda_device, seed=0)
+    train.state.set_capturable(state.optimizer, True)
+    step, _ = train.make_steps(cfg, 10)
+    batch = _full_batch(cfg, cuda_device)
+    restore = train.state.snapshot(state)
+    calls0 = adam.adam_step.launches
+    step(state, batch, None)
+    eager = [p.detach().clone() for p in state.model.parameters()]
+    assert adam.adam_step.launches - calls0 == 1
+    restore()
+    graph = StepGraph(lambda **b: step(state, b, None)[1], cuda_device,
+                      snapshot=lambda: train.state.snapshot(state))
+    graph(**batch)
+    torch.cuda.synchronize()
+    assert adam.adam_step.launches - calls0 == 3
+    assert all(torch.equal(a, b.detach()) for a, b in
+               zip(eager, state.model.parameters()))
+    before = adam.adam_step.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph(**batch)
+        torch.cuda.synchronize()
+    assert adam.adam_step.launches == before
+    names = [e.key for e in prof.key_averages()]
+    assert any("adam_step_chunks" in n for n in names), names
+    assert not any("multi_tensor_apply_kernel" in n for n in names), names
+
+
+def test_checkpoint_from_the_kernel_path_resumes_bit_for_bit(cuda_device,
+                                                             tmp_path):
+    """A capturable run trained by the kernel, written as a checkpoint
+    after two steps and restored into a fresh state, takes the next two
+    steps to the same weights, moments and counters as the run that went
+    on; the checkpoint holds the counters on the host, as an eager Adam
+    writes them."""
+    cfg = _seg_cfg(dropout=0.0)
+    step, _ = train.make_steps(cfg, steps_per_epoch=10)
+    state = train.init_state(cfg, device=cuda_device, seed=0)
+    train.state.set_capturable(state.optimizer, True)
+    batch = _seg_batch(cfg, cuda_device)
+    for _ in range(2):
+        step(state, batch, None)
+    path = train.save_checkpoint(str(tmp_path / "ckpt"), state, state.step)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    assert all(st["step"].device.type == "cpu" and float(st["step"]) == 2
+               for st in saved["optimizer"]["state"].values())
+    twin = train.init_state(cfg, device=cuda_device, seed=9)
+    train.state.set_capturable(twin.optimizer, True)
+    twin = train.restore_checkpoint(path, twin)
+    calls0 = adam.adam_step.launches
+    for s in (state, twin):
+        for _ in range(2):
+            step(s, batch, None)
+    torch.cuda.synchronize()
+    assert adam.adam_step.launches - calls0 == 4
+    for (k, a), b in zip(state.model.state_dict().items(),
+                         twin.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    want = state.optimizer.state_dict()["state"]
+    got = twin.optimizer.state_dict()["state"]
+    assert list(got) == list(want)
+    for i, entry in want.items():
+        for name, t in entry.items():
+            assert got[i][name].device == t.device, (i, name)
+            assert torch.equal(got[i][name], t), (i, name)

@@ -759,3 +759,215 @@ def test_encoder_recenters_through_segment_sums_on_the_sorted_path(
     _, enc = model(pc, sn, pc[:, :cfg.node_num] + 0.1)
     assert calls == ([True] if pooling == "sorted_window" else [])
     assert float(enc.counts.sum()) == cfg.k * cfg.input_pc_num * 2
+
+
+# ---------------------------------------------------------------------------
+# Adam's update: ops.cuda.adam_step (its plain version on the CPU) and
+# train.state.adam_update
+# ---------------------------------------------------------------------------
+
+ADAM_SHAPES = ((64, 3), (64,), (5,), (7, 9, 3), (1,), (1000,), (33, 2))
+
+
+def _adam_groups(seed=0):
+    """Two groups of parameters of odd sizes (the encoder's first three,
+    the head's rest) and three steps of gradients, each tensor's at its own
+    scale."""
+    g = torch.Generator().manual_seed(seed)
+    params = [torch.randn(s, generator=g) for s in ADAM_SHAPES]
+    grads = [[torch.randn(s, generator=g) * 10.0 ** (i % 5 - 3)
+              for i, s in enumerate(ADAM_SHAPES)] for _ in range(3)]
+    return params, grads
+
+
+def _adam(params, lrs=(1e-3, 5e-4), **kw):
+    ps = [torch.nn.Parameter(p.clone()) for p in params]
+    opt = torch.optim.Adam([{"params": ps[:3], "lr": lrs[0], "name": "encoder"},
+                            {"params": ps[3:], "lr": lrs[1], "name": "head"}],
+                           betas=(0.9, 0.999), eps=1e-8, **kw)
+    return ps, opt
+
+
+def _ulps(got, want):
+    """The largest |got - want| over the spacing of float32 at |want|."""
+    w = want.detach().double()
+    spacing = np.spacing(np.abs(w.numpy()).astype(np.float32))
+    return float(((got.detach().double() - w).abs().numpy()
+                  / spacing.astype(np.float64)).max())
+
+
+def _param_gap(got, want, lr, steps):
+    """The largest |got - want| of a parameter over what the two bias
+    corrections allow each step: an ulp of the parameter (its rounding
+    after an update that differs) and 1e-5 of the largest update Adam
+    makes, lr (1 - beta1) / sqrt(1 - beta2).  The chain's float32 beta2
+    lies 1.3e-8 above 0.999, which moves 1 - beta2^t by up to 1.3e-5 of
+    itself at small t and its square root by 6.5e-6, where the host's
+    float64 corrections do not."""
+    w = want.detach().double().numpy()
+    room = steps * (np.spacing(np.abs(w).astype(np.float32)).astype(
+        np.float64) + 1e-5 * lr * 0.1 / 0.001 ** 0.5)
+    return float((np.abs(got.detach().double().numpy() - w) / room).max())
+
+
+@pytest.mark.parametrize("foreach", [False, True])
+def test_adam_step_plain_follows_torch_adam_on_the_cpu(foreach):
+    """Three steps of the plain version (through ``adam_step`` on CPU
+    tensors) against ``torch.optim.Adam`` on the CPU from the same state
+    and gradients: the moments within 2 ulp, each parameter within
+    ``_param_gap`` (the host computes the bias corrections in float64, the
+    chain in float32), the counters equal."""
+    from sonet_torch.ops.cuda import adam_step as adam
+    params, grads = _adam_groups()
+    ps, opt = _adam(params, foreach=foreach)
+    qs = [p.clone() for p in params]
+    ms = [torch.zeros_like(p) for p in params]
+    vs = [torch.zeros_like(p) for p in params]
+    steps = [torch.tensor(0.0) for _ in params]
+    lrs = [1e-3] * 3 + [5e-4] * (len(params) - 3)
+    for step_grads in grads:
+        for p, g in zip(ps, step_grads):
+            p.grad = g.clone()
+        opt.step()
+        adam.adam_step(qs, step_grads, ms, vs, steps, lrs, (0.9, 0.999), 1e-8)
+    for i, p in enumerate(ps):
+        st = opt.state[p]
+        assert _ulps(ms[i], st["exp_avg"]) <= 2, i
+        assert _ulps(vs[i], st["exp_avg_sq"]) <= 2, i
+        assert _param_gap(qs[i], p, lrs[i], 3) <= 1, i
+        assert float(steps[i]) == float(st["step"]) == 3.0
+    assert adam.adam_step.launches == 0
+
+
+def test_apply_gradients_on_the_cpu_runs_optimizer_step(monkeypatch):
+    """CPU parameters keep ``optimizer.step()``: the card's update is
+    never called, and the step counts on."""
+    from sonet_torch import config as tcfg
+    from sonet_torch import train
+    from sonet_torch.train import state as tstate
+    st = train.init_state(tcfg.tiny_test(), device="cpu", seed=0)
+    for p in st.model.parameters():
+        p.grad = torch.full_like(p, 0.5)
+    calls, real = [], st.optimizer.step
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    def refused(optimizer):
+        raise AssertionError("adam_update on CPU parameters")
+    monkeypatch.setattr(st.optimizer, "step", counted)
+    monkeypatch.setattr(tstate, "adam_update", refused)
+    before = [p.detach().clone() for p in st.model.parameters()]
+    st.apply_gradients()
+    assert calls == [1] and st.step == 1
+    assert all(not torch.equal(b, p) for b, p in
+               zip(before, st.model.parameters()))
+
+
+def test_adam_update_makes_state_as_adam_and_skips_missing_gradients():
+    """``adam_update`` over CPU parameters against ``optimizer.step()``:
+    the state each makes at a first gradient (zero moments, a float32
+    counter on the host for an eager group), three updates within the
+    plain version's gaps, and a parameter whose ``.grad`` is None left as
+    it is and given no state by both."""
+    from sonet_torch.train.state import adam_update
+    params, grads = _adam_groups(1)
+    pa, opt_a = _adam(params)
+    pb, opt_b = _adam(params)
+    for step_grads in grads:
+        for p, q, g in zip(pa, pb, step_grads):
+            p.grad, q.grad = g.clone(), g.clone()
+        pa[4].grad = pb[4].grad = None
+        opt_a.step()
+        adam_update(opt_b)
+    assert pb[4] not in opt_b.state and pa[4] not in opt_a.state
+    assert torch.equal(pb[4].detach(), params[4])
+    for i, (p, q) in enumerate(zip(pa, pb)):
+        if i == 4:
+            continue
+        sa, sb = opt_a.state[p], opt_b.state[q]
+        assert sorted(sa) == sorted(sb) == ["exp_avg", "exp_avg_sq", "step"]
+        assert sb["step"].device.type == "cpu"
+        assert sb["step"].dtype == torch.float32 and float(sb["step"]) == 3
+        assert _ulps(sb["exp_avg"], sa["exp_avg"]) <= 2
+        assert _param_gap(q, p, opt_a.param_groups[i >= 3]["lr"], 3) <= 1
+
+
+@pytest.mark.parametrize("setting", ["weight_decay", "amsgrad", "maximize",
+                                     "betas"])
+def test_adam_update_refuses_what_the_kernel_does_not_compute(setting):
+    from sonet_torch.train.state import adam_update
+    params, grads = _adam_groups()
+    ps, opt = _adam(params)
+    group = opt.param_groups[1]
+    group[setting] = ((0.8, 0.999) if setting == "betas"
+                      else 0.01 if setting == "weight_decay" else True)
+    for p, g in zip(ps, grads[0]):
+        p.grad = g
+    with pytest.raises(ValueError, match="adam_update"):
+        adam_update(opt)
+    assert not opt.state
+
+
+def _adam_args():
+    params, grads = _adam_groups()
+    n = len(params)
+    return [params, grads[0], [torch.zeros_like(p) for p in params],
+            [torch.zeros_like(p) for p in params],
+            [torch.tensor(0.0) for _ in range(n)], [1e-3] * n]
+
+
+def _faulty(fault):
+    args = _adam_args()
+    if fault == "lengths":
+        args[5] = args[5][:-1]
+    elif fault == "param float64":
+        args[0][1] = args[0][1].double()
+    elif fault == "grad bfloat16":
+        args[1][2] = args[1][2].bfloat16()
+    elif fault == "step float64":
+        args[4][0] = torch.tensor(0.0, dtype=torch.float64)
+    elif fault == "grad shape":
+        args[1][3] = args[1][3].reshape(-1)
+    elif fault == "moment shape":
+        args[3][0] = torch.zeros(3, 64)
+    elif fault == "not contiguous":
+        args[0][0] = torch.zeros(3, 64).t()
+        args[1][0] = args[1][0].t().contiguous().t()
+    elif fault == "step shape":
+        args[4][2] = torch.zeros(1)
+    elif fault == "grad on meta":
+        args[1][1] = args[1][1].to("meta")
+    elif fault == "all on meta":
+        args[:4] = [[t.to("meta") for t in ts] for ts in args[:4]]
+    elif fault == "params on two devices":
+        for k in range(4):
+            args[k][5] = args[k][5].to("meta")
+    return args
+
+
+@pytest.mark.parametrize("fault,err,match", [
+    ("lengths", ValueError, "lengths"),
+    ("param float64", TypeError, "param 1 dtype"),
+    ("grad bfloat16", TypeError, "grad 2 dtype"),
+    ("step float64", TypeError, "step 0 dtype"),
+    ("grad shape", ValueError, "one shape"),
+    ("moment shape", ValueError, "one shape"),
+    ("not contiguous", ValueError, "contiguous"),
+    ("step shape", ValueError, "0-dim"),
+    ("grad on meta", ValueError, "one CUDA device"),
+    ("all on meta", ValueError, "one CUDA device"),
+    ("params on two devices", ValueError, "one CUDA device|one device")])
+def test_adam_step_rejects_what_it_does_not_take(fault, err, match):
+    """Mixed devices, dtypes or shapes raise before anything is updated
+    or launched."""
+    from sonet_torch.ops.cuda import adam_step as adam
+    args = _faulty(fault)
+    before = [p.clone() for p in args[0] if p.device.type == "cpu"]
+    with pytest.raises(err, match=match):
+        adam.adam_step(*args, (0.9, 0.999), 1e-8)
+    assert all(torch.equal(b, p) for b, p in
+               zip(before, [p for p in args[0] if p.device.type == "cpu"]))
+    assert all(float(s) == 0 for s in args[4] if s.device.type == "cpu")
+    assert adam.adam_step.launches == 0
