@@ -55,7 +55,15 @@ Phases; any failure ends the run with a non-zero exit and no result line:
    capturable=True)`` (``==``) and its plain version over three steps,
    timed by graph beside its bound (28 bytes a parameter) and the foreach
    Adam; its calls are counted on every path: once a train step that
-   Python runs, and on exactly the paths that run a backward;
+   Python runs, and on exactly the paths that run a backward.  The train
+   step's three sorts (``node_sort``, ``smallest_k``, ``subset_select``)
+   against their plain versions, the stable ``torch.sort`` code they
+   replace, at every cell's shapes (``SORT_SHAPES``) and on edge cases,
+   bit for bit (NaN and signed zeros included), timed by graph beside
+   their bound, the plain version and ``torch.sort`` alone; the node
+   sort's launches are held to kernel 1's on every path, the top-k
+   selection's to at least kernel 1's and to two a train step, and the
+   subsample's to the device pipeline's sampled steps;
 4. serving: the ModelNet40 classifier (``config.modelnet40()``, full
    width, seeded random weights) served through ``ServingEngine`` on the
    card, its forward a captured CUDA graph: the warm-up captures it
@@ -557,7 +565,7 @@ def phase_kernels():
             *_check_batchnorm_act(torch, gen),
             _check_segment_max_grad(torch, gen, pool_ids),
             _check_segment_sums(torch, gen, sums_ids),
-            _check_adam_step(torch)]
+            _check_adam_step(torch), *_check_sorts(torch, gen)]
 
 
 def host_us_per_call(fn, calls: int = 200) -> float:
@@ -1481,6 +1489,244 @@ def _check_adam_step(torch):
     return row
 
 
+# the three sorts at every cell's shapes: (cells, B, raw points a cloud, N
+# points kept, D, M nodes, k, som_k); the subsample runs only where raw > N
+SORT_SHAPES = (("modelnet40", 8, 10000, 5000, 3, 64, 3, 9),
+               ("shapenetpart, autoencoder", 8, 2048, 1024, 3, 64, 3, 9),
+               ("mnist", 8, 512, 512, 2, 25, 3, 9))
+
+
+def same_bits(torch, got, want) -> bool:
+    """Whether two tensors have one shape, one dtype and the same bits (NaN
+    equal to a NaN of its bits, -0.0 unequal to +0.0)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype.is_floating_point:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    return bool(torch.equal(got, want))
+
+
+def sort_inputs(torch, gen, dev, B, raw, N, D, M, k):
+    """Realistic inputs of the three sorts at one cell's shapes: uniform
+    subsample keys (B, raw), the squared distances (B, N, M) of random
+    points to nodes drawn among them and (B, M, M) of the nodes to each
+    other with the diagonal pinned at -1, and the node ids (B, kN) of the
+    points' top-k assignment, unsorted as the encoder gives them."""
+    from sonet_torch.ops import pairwise
+    keys = torch.rand((B, raw), generator=gen, device=dev)
+    pc = torch.randn((B, N, D), generator=gen, device=dev)
+    pick = torch.randperm(N, generator=gen, device=dev)[:M]
+    nodes = pc[:, pick] + 0.01 * torch.randn((B, M, D), generator=gen,
+                                             device=dev)
+    d_assign = pairwise.pairwise_sqdist(pc, nodes).contiguous()
+    d_knn = pairwise.pairwise_sqdist(nodes, nodes).masked_fill(
+        torch.eye(M, dtype=torch.bool, device=dev), -1.0).contiguous()
+    idx = torch.sort(d_assign, dim=-1, stable=True).indices[..., :k]
+    ids = idx.transpose(1, 2).reshape(B, k * N).to(torch.int32).contiguous()
+    return keys, d_assign, d_knn, ids
+
+
+def smallest_k_cases(torch, gen, dev):
+    """Edge cases of the top-k selection as (name, d, k)."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=gen,
+                             device=dev).float()
+
+    signed_zeros = torch.where(rand(64, 64) < 0.5, 0.0, -0.0)
+    signed_zeros[:, ::7] = rand(64, 10)
+    nan = ints(4, 64, 64)
+    nan[rand(64, 64) < 0.3] = float("nan")
+    nan[:, 5] = float("inf")
+    nan[:, 9] = -float("inf")
+    nan[3] = float("nan")                        # a row of NaN alone
+    dup = torch.randn((8, 64, 3), generator=gen, device=dev)
+    dup[:, 32:] = dup[:, :32]                    # every node twice
+    from sonet_torch.ops import pairwise
+    d_dup = pairwise.pairwise_sqdist(dup, dup).masked_fill(
+        torch.eye(64, dtype=torch.bool, device=dev), -1.0).contiguous()
+    cases = [("ties: 4 distinct values, k=3", ints(4, 8, 5000, 64), 3),
+             ("ties: 3 distinct values, k=16", ints(3, 300, 64), 16),
+             ("every value equal, k=16", torch.ones((50, 64), device=dev),
+              16),
+             ("-0.0 and +0.0, k=9", signed_zeros, 9),
+             ("-0.0 and +0.0, k=3, M=25", signed_zeros[:, :25].contiguous(),
+              3),
+             ("NaN, inf and -inf, k=16", nan, 16),
+             ("knn of doubled nodes: the diagonal at -1, ties, k=9", d_dup,
+              9),
+             ("k = L = 7", rand(5, 7), 7), ("L = 1", rand(9, 1), 1),
+             ("4-d rows", rand(2, 3, 40, 25), 5),
+             ("long rows", rand(3, 5000), 16),
+             ("one row", rand(1, 64), 9)]
+    for k in range(1, 17):
+        cases.append((f"k={k} of 33", ints(9, 257, 33), k))
+    return cases
+
+
+def node_sort_cases(torch, gen, dev):
+    """Edge cases of the node sort as (name, ids, M)."""
+    def ids(B, L, lo, hi):
+        return torch.randint(lo, hi, (B, L), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    one = torch.tensor([0, 31, 63], dtype=torch.int32, device=dev)
+    empty = ids(2, 700, 0, 14)
+    empty[empty == 3] = 2                         # nodes 3, 14-19 empty
+    cases = [("all ids on one node: the first, a middle, the last",
+              one[:, None].expand(3, 15000).contiguous(), 64),
+             ("empty nodes", empty, 20), ("M=1", ids(2, 500, 0, 1), 1),
+             ("M=1024", ids(4, 20000, 0, 1024), 1024),
+             ("M=1024, few ids", ids(2, 100, 0, 1024), 1024),
+             ("a node an id", torch.randperm(64, generator=gen, device=dev)
+              .to(torch.int32).expand(2, 64).contiguous(), 64),
+             ("sorted", torch.sort(ids(2, 3000, 0, 64), dim=1).values
+              .contiguous(), 64),
+             ("reversed", torch.sort(ids(2, 3000, 0, 64), dim=1,
+                                     descending=True).values.contiguous(),
+              64),
+             ("long clouds", ids(2, 100000, 0, 64), 64),
+             ("one cloud", ids(1, 15000, 0, 64), 64)]
+    for L in (1, 31, 32, 33, 1024, 1025, 4097):
+        cases.append((f"L={L}", ids(3, L, 0, 8), 8))
+    return cases
+
+
+def subset_select_cases(torch, gen, dev):
+    """Edge cases of the subset selection as (name, keys, n)."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    ties = torch.randint(0, 16, (4, 10000), generator=gen,
+                         device=dev).float() / 16
+    signed = torch.randn((4, 3000), generator=gen, device=dev)
+    signed[:, ::3] = 0.0
+    signed[:, 1::6] = -0.0
+    nan = rand(2, 3000)
+    nan[:, ::5] = float("nan")
+    nan[:, 1::7] = float("inf")
+    cases = [("ties: 16 values", ties, 5000),
+             ("every key equal", torch.full((2, 10000), 0.5, device=dev),
+              5000),
+             ("zeros of both signs and negatives", signed, 3000),
+             ("NaN and inf, every index", nan, 3000),
+             ("n = 0", rand(2, 100), 0), ("n = 1", rand(2, 100), 1),
+             ("n = L", rand(3, 777), 777),
+             ("long rows", rand(2, 40000), 20000),
+             ("keys crowding two buckets", 0.5 + rand(2, 3000) * 1e-3, 1500),
+             ("descending", torch.sort(rand(2, 10000), dim=1,
+                                       descending=True).values.contiguous(),
+              5000)]
+    for L in (1, 31, 32, 33, 1024, 1025, 2048, 4097):
+        cases.append((f"L={L}", rand(3, L), (L + 1) // 2))
+    return cases
+
+
+def sorts_mismatch(torch, got, want):
+    """The outputs of ``got`` that do not have the bits of ``want``'s, by
+    position."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return [i for i, (a, b) in enumerate(zip(got, want))
+            if not same_bits(torch, a, b)]
+
+
+def sort_references(torch):
+    """Per operator, the stable PyTorch sort its kernel must equal, run
+    where the input lies: the op's plain version."""
+    from sonet_torch.ops.cuda import sorts
+    return {"node_sort": sorts.node_sort_plain,
+            "smallest_k": sorts.smallest_k_plain,
+            "subset_select": sorts.subset_select_plain}
+
+
+def _check_sorts(torch, gen):
+    """The three sort kernels (``csrc/sorts.cu``) against their plain
+    versions, the stable ``torch.sort`` / ``argsort`` code they replace, run
+    on the card: the same bits (``==``, NaN and signed zeros included) at
+    every cell's shapes (``SORT_SHAPES``) on realistic inputs and on the
+    edge cases of ``node_sort_cases``, ``smallest_k_cases`` and
+    ``subset_select_cases``, two calls the same bits; then timed by graph
+    replay beside its bound (each input byte read once, each output byte
+    written once), the plain version's time by graph and ``torch.sort``'s
+    alone (``library_ms``).  Returns one row a kernel."""
+    from sonet_torch.ops.cuda import sorts
+    dev = torch.device("cuda")
+    plain = sort_references(torch)
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": "sonet_torch/csrc/sorts.cu",
+                   "replaces": "none (the JAX package leaves its sorts, "
+                               "lax.top_k and argsort, to XLA)",
+                   "launches": None, "library_ms": None, "shapes": {}}
+            for name in plain}
+    # (op, shape key, args, bytes, the torch.sort alone)
+    timed = []
+    for cells, B, raw, N, D, M, k, som_k in SORT_SHAPES:
+        keys, d_assign, d_knn, ids = sort_inputs(torch, gen, dev, B, raw, N,
+                                                 D, M, k)
+        calls = [("smallest_k", f"{cells}: assign {tuple(d_assign.shape)} "
+                  f"k={k}", (d_assign, k),
+                  d_assign.numel() * 4 + d_assign[..., :k].numel() * 12,
+                  lambda d=d_assign: torch.sort(d, dim=-1, stable=True)),
+                 ("smallest_k", f"{cells}: knn {tuple(d_knn.shape)} "
+                  f"k={som_k}", (d_knn, som_k),
+                  d_knn.numel() * 4 + d_knn[..., :som_k].numel() * 12,
+                  lambda d=d_knn: torch.sort(d, dim=-1, stable=True)),
+                 ("node_sort", f"{cells}: {tuple(ids.shape)} M={M}",
+                  (ids, M), ids.numel() * (4 + 4 + 8 + 8) + B * 8,
+                  lambda i=ids: torch.sort(i, dim=1, stable=True))]
+        if raw > N:
+            calls.append(("subset_select", f"{cells}: {tuple(keys.shape)} "
+                          f"n={N}", (keys, N), keys.numel() * 4 + B * N * 8,
+                          lambda x=keys: torch.sort(x, dim=1, stable=True)))
+        timed += calls
+    cases = ([("node_sort", n, (i, m)) for n, i, m in node_sort_cases(
+                 torch, gen, dev)]
+             + [("smallest_k", n, (d, k)) for n, d, k in smallest_k_cases(
+                 torch, gen, dev)]
+             + [("subset_select", n, (x, m)) for n, x, m in
+                subset_select_cases(torch, gen, dev)])
+    bad = {}
+    for op, name, args in [(o, n, a) for o, n, a, _, _ in timed] + cases:
+        fn = getattr(sorts, op)
+        got, again = fn(*args), fn(*args)
+        want = plain[op](*args)
+        torch.cuda.synchronize()
+        off = sorts_mismatch(torch, got, want)
+        if sorts_mismatch(torch, got, again):
+            off.append("two calls differ")
+        if off:
+            bad[f"{op} at {name}"] = off
+    log(f"the sorts at {len(timed)} main-path calls and {len(cases)} edge "
+        f"cases: " + (f"differing {bad}" if bad else "every output equal "
+                      "to the stable sort's, bit for bit"))
+    if bad:
+        raise AssertionError(f"a sort kernel differs from its plain "
+                             f"version: {bad}")
+
+    for op, key, args, nbytes, library in timed:
+        fn = getattr(sorts, op)
+        bound_ms, bound_by = _bound(nbytes, 0)
+        graph_ms = time_graph_ms(lambda: fn(*args), reps=20, inner=20)
+        plain_ms = time_graph_ms(lambda: plain[op](*args), reps=10, inner=5)
+        library_ms = time_graph_ms(library, reps=10, inner=5)
+        row = rows[op]
+        row["shapes"][key] = {
+            "graph_ms": graph_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "nbytes": nbytes, "plain_graph_ms": plain_ms,
+            "library_ms": library_ms}
+        if row["library_ms"] is None:
+            row["library_ms"] = library_ms
+        log(f"{op} at {key}: {graph_ms:.4f} ms by graph replay, bound "
+            f"{bound_ms:.4f} ms ({nbytes / 1e6:.3f} MB at "
+            f"{HBM_BYTES_PER_S / 1e12} TB/s): {bound_ms / graph_ms:.1%}; the "
+            f"plain version {plain_ms:.4f} ms, torch.sort alone "
+            f"{library_ms:.4f} ms by graph")
+    return list(rows.values())
+
+
 # the fused BatchNorm's (rows, width) on the main path: the first
 # PointNet over 8 x 15,000 stacked points, the segmenter head's first
 # layer over 24,576, the kNN layer's 4,608 (two-pass) and a head's rank 2
@@ -1964,6 +2210,13 @@ def phase_train(cfg, small, kernel_counters, on_path, ckpt_dir,
         if launches[n] != TRAIN_STEPS:
             raise AssertionError(f"{n} launched {launches[n]} times in "
                                  f"{TRAIN_STEPS} train steps, want one a step")
+    # the top-k selection: the assignment's and the nodes' kNN a step
+    if (launches["smallest_k"], launches["subset_select"]) != (
+            2 * TRAIN_STEPS, 0):
+        raise AssertionError(f"{TRAIN_STEPS} train steps launched the top-k "
+                             f"selection {launches['smallest_k']} times and "
+                             f"the subsample {launches['subset_select']}, "
+                             f"want {2 * TRAIN_STEPS} and 0")
     _check_batchnorm_calls(norms, launches, TRAIN_STEPS,
                            [n for n, m in model.named_modules()
                             if isinstance(m, BatchNorm)],
@@ -2287,6 +2540,17 @@ def phase_som(profile_dir=None):
         if profile_dir:
             profile_run(lambda: som.fit(x_card, cfg, device="cuda"),
                         profile_dir, f"som_fit_{schedule}")
+
+
+def _check_selections(path, launches):
+    """Every encoder forward on the card takes the top-k selection at least
+    once (the assignment; the nodes' kNN, the SOM's fits and the scatter
+    path's checks add more): raises if ``path`` launched it fewer times
+    than kernel 1."""
+    if launches["smallest_k"] < launches["segment_max_window"]:
+        raise AssertionError(f"path {path}: the top-k selection launched "
+                             f"{launches['smallest_k']} times, kernel 1 "
+                             f"{launches['segment_max_window']}")
 
 
 def _launch_counts(kernel_counters):
@@ -3539,7 +3803,8 @@ def phase_trainer_device(kernel_counters, on_path, runs):
             shapes != {(8, 15000, 384, 64): 6}):
         raise AssertionError("device pipeline: want 3 captures, 32 replays "
                              "and kernel 1 at (8, 15000, 384, 64) only")
-    for n in on_path:
+    # every captured step subsamples 10,000 points to 5,000 on the card
+    for n in (*on_path, "subset_select"):
         if launches[n] != 6:
             raise AssertionError(f"{n} launched {launches[n]} times")
 
@@ -3636,7 +3901,7 @@ def phase_trainer_chunked(kernel_counters, on_path, runs):
             or (graphs.captures, graphs.replays) != (2, 16) or bad):
         raise AssertionError("chunked: want 4 chunks, 2 captures, 16 replays "
                              "and the resident run's weights")
-    for n in on_path:
+    for n in (*on_path, "subset_select"):
         if launches[n] != 4:
             raise AssertionError(f"{n} launched {launches[n]} times")
     return launches, replays
@@ -4611,16 +4876,20 @@ def _sharded_pooling_check(mesh, dev):
 def _mesh_counters():
     """Every kernel's launch counter by its row's name: kernels 1 and 2,
     the fused BatchNorm by mode, node pooling's backward, node
-    recentering's segment sums and Adam's update."""
+    recentering's segment sums, Adam's update and the three sorts."""
     from sonet_torch.ops.cuda.segment_argmax import segment_argmax
     from sonet_torch.ops.cuda.segment_max_grad import segment_max_grad
     from sonet_torch.ops.cuda.segment_max_window import windowed_vals
     from sonet_torch.ops.cuda.adam_step import adam_step
     from sonet_torch.ops.cuda.segment_sums import segment_sums
+    from sonet_torch.ops.cuda.sorts import (node_sort, smallest_k,
+                                            subset_select)
     return {"segment_max_window": windowed_vals,
             "segment_argmax": segment_argmax, **batchnorm_counters(),
             "segment_max_grad": segment_max_grad,
-            "segment_sums": segment_sums, "adam_step": adam_step}
+            "segment_sums": segment_sums, "adam_step": adam_step,
+            "node_sort": node_sort, "smallest_k": smallest_k,
+            "subset_select": subset_select}
 
 
 def _planted_sync_grads(model, mesh):
@@ -5316,9 +5585,10 @@ def main(argv=None) -> int:
     phase_build()
     kernels = phase_kernels()
     counters = _mesh_counters()
-    # kernel 2 is on no path; the segment sums run beside kernel 1 in every
-    # encoder forward on the card, so every path holds both to one count
-    on_path = ("segment_max_window", "segment_sums")
+    # kernel 2 is on no path; the segment sums and the node sort run beside
+    # kernel 1 in every encoder forward on the card, so every path holds
+    # the three to one count
+    on_path = ("segment_max_window", "segment_sums", "node_sort")
     from sonet_torch import config
     classify, segment = config.modelnet40(), config.shapenetpart()
     autoenc = config.autoencoder()
@@ -5347,6 +5617,7 @@ def main(argv=None) -> int:
         if plain:
             raise AssertionError(f"path {name}: BatchNorm ran its plain "
                                  f"chain on the card at {plain}")
+        _check_selections(name, out[0])
         by_path[name], ran[name] = out[0], graphs.ran
         return out
 
@@ -5410,6 +5681,11 @@ def main(argv=None) -> int:
             finish_mesh_nccl(nccl, runs, card))
         by_path.update(mesh_launches)
         ran.update(mesh_ran)
+    for name, launches in mesh_launches.items():
+        _check_selections(name, launches)
+    log("the selections' launches by path (top-k, subsample): "
+        + str({p: (n["smallest_k"], n["subset_select"])
+               for p, n in by_path.items()}))
     # Adam's update ran on exactly the paths that ran a backward: every
     # train path, and no serve, infer or export path
     updated = {p for p, n in by_path.items() if n["adam_step"]}

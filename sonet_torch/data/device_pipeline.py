@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..ops.cuda.sorts import SUBSET_MAX_KEYS, subset_select
 
 KEYS = ("pc", "sn", "node", "label", "seg")
 
@@ -435,7 +436,9 @@ def apply_sample(raw: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor],
                  cfg: Config, *, train: bool) -> Dict[str, torch.Tensor]:
     """Subsample and augment the gathered rows ``raw`` with ``draws``
     (``draw_sample``): the first ``input_pc_num`` points of a stable argsort
-    of the keys (a distinct uniform subset; ``seg`` follows), then in
+    of the keys (a distinct uniform subset; ``seg`` follows; for up to
+    ``SUBSET_MAX_KEYS`` keys a row the selection ``subset_select``, on a
+    card its kernel), then in
     training the y rotation, the 3-axis perturbation, jitter (points and
     normals 0.01 clipped at 0.05, nodes 0.04 at 0.1), the per-item scale
     and the shift.  A pure function: the same inputs give the same
@@ -444,7 +447,10 @@ def apply_sample(raw: Dict[str, torch.Tensor], draws: Dict[str, torch.Tensor],
     seg = raw.get("seg")
     if "keys" in draws:
         N = cfg.input_pc_num
-        choice = torch.argsort(draws["keys"], dim=1, stable=True)[:, :N]
+        keys = draws["keys"]
+        choice = (subset_select(keys.contiguous(), N)
+                  if keys.shape[1] <= SUBSET_MAX_KEYS
+                  else torch.argsort(keys, dim=1, stable=True)[:, :N])
         rows = choice[..., None].expand(-1, -1, pc.shape[-1])
         pc = torch.gather(pc, 1, rows)
         if sn is not None:

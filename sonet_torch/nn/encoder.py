@@ -9,7 +9,8 @@ Train or eval follows ``nn.Module.training``; ``epoch`` drives the
 BatchNorm momentum decay in training.
 
 With ``pooling="sorted_window"`` the stacked points are sorted by node
-once per forward: the node counts and cluster sums run through the CUDA
+once per forward (on a card, by the counting-sort kernel
+``ops.cuda.sorts.node_sort``): the node counts and cluster sums run through the CUDA
 segment-sum kernel over each node's run of rows (``ops.cuda.segment_sums``)
 and pooling through the CUDA windowed segment-max kernel
 (``ops.segment_fast``); every per-point layer is permutation-equivariant
@@ -45,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from ..config import Config
 from ..ops import (assign_topk, knn, one_hot, segment_max, segment_max_fast,
                    segment_sums)
+from ..ops.cuda.sorts import NODE_SORT_MAX_NODES, node_sort, node_sort_plain
 from ..parallel import collectives
 from ..utils.spans import span
 from .layers import (KNNModule, PointLayer, PointNetMLP, PointResNet,
@@ -154,21 +156,17 @@ class Encoder(nn.Module):
 
             sort_points = resolve_pooling(cfg, pc.device) == "sorted_window"
             if sort_points:
-                # stable sort by node; xyz and normals follow by gather
-                id0 = min_idx[:, :1].long()            # node of point 0
-                min_idx, perm = torch.sort(min_idx, dim=1, stable=True)
-                inv_perm = torch.empty_like(perm)
-                inv_perm.scatter_(1, perm, torch.arange(
-                    perm.shape[1], device=perm.device).expand_as(perm))
+                # stable sort by node (the counting-sort kernel on a card,
+                # up to NODE_SORT_MAX_NODES nodes), with the permutation
+                # both ways and point 0's sorted position, its node's first
+                # slot; xyz and normals follow by gather
+                sort = (node_sort if M <= NODE_SORT_MAX_NODES
+                        else node_sort_plain)
+                min_idx, perm, inv_perm, point0_idx = sort(min_idx, M)
                 rows = perm[..., None].expand(-1, -1, D)
                 x_stack = torch.gather(x_stack, 1, rows)
                 if sn_stack is not None:
                     sn_stack = torch.gather(sn_stack, 1, rows)
-                # the sort is stable and point 0 is the first original point
-                # of its node, so its sorted position is the node's first
-                # slot
-                point0_idx = torch.searchsorted(
-                    min_idx, id0.to(min_idx.dtype), side="left")[:, 0]
             else:
                 perm = inv_perm = point0_idx = None
 

@@ -17,6 +17,8 @@ from .cuda.segment_argmax import (segment_argmax, segment_argmax_plain,
 from .cuda.segment_max_window import (segment_max_windowed, windowed_vals,
                                       windowed_vals_plain)
 from .cuda.segment_sums import segment_sums, segment_sums_plain
+from .cuda.sorts import (node_sort, node_sort_plain, smallest_k,
+                         smallest_k_plain, subset_select, subset_select_plain)
 
 __all__ = [
     "pairwise_sqdist", "knn", "assign_topk", "one_hot", "one_hot_f32",
@@ -28,5 +30,7 @@ __all__ = [
     "route_max_grad", "segment_max_fast", "segment_max_windowed",
     "windowed_vals", "windowed_vals_plain", "segment_argmax",
     "segment_argmax_plain", "segment_max_argmax", "segment_sums",
-    "segment_sums_plain", "chamfer", "robust_norm", "ChamferResult",
+    "segment_sums_plain", "node_sort", "node_sort_plain", "smallest_k",
+    "smallest_k_plain", "subset_select", "subset_select_plain", "chamfer",
+    "robust_norm", "ChamferResult",
 ]

@@ -2,9 +2,10 @@
 ``ops/pairwise.py``).
 
 Channel-last: points are ``(..., N, C)``.  Distances are computed in
-float32 as ``|a|^2 + |b|^2 - 2 a.b`` clamped at 0.  Top-k selection uses a
-stable ascending sort so that ties go to the lower index, as
-``jax.lax.top_k`` does (``torch.topk`` promises no tie order).
+float32 as ``|a|^2 + |b|^2 - 2 a.b`` clamped at 0.  Top-k selection gives
+the first k columns of a stable ascending sort, so that ties go to the
+lower index, as ``jax.lax.top_k`` does (``torch.topk`` promises no tie
+order).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from .cuda.sorts import SMALLEST_K_MAX, smallest_k
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -25,9 +28,21 @@ def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(d, 0.0)
 
 
+def _selects(d: torch.Tensor, k: int) -> bool:
+    """Whether ``_smallest_k(d, k)`` takes the selection kernel: for a
+    tensor on a card and 1 <= k <= min(L, ``SMALLEST_K_MAX``)."""
+    return d.is_cuda and 1 <= k <= min(SMALLEST_K_MAX, d.shape[-1])
+
+
 def _smallest_k(d: torch.Tensor, k: int):
     """(values, indices) of the k smallest entries along the last axis,
-    ascending, ties broken toward the lower index."""
+    ascending, ties broken toward the lower index: the first k columns of
+    a stable sort.  On a card, for k up to ``SMALLEST_K_MAX``, the
+    selection kernel (``ops.cuda.sorts.smallest_k``), which gives exactly
+    those; on the CPU, and above that k, the sort itself (so a program
+    traced on the CPU holds plain operators only)."""
+    if _selects(d, k):
+        return smallest_k(d.contiguous(), k)
     vals, idx = torch.sort(d, dim=-1, stable=True)
     return vals[..., :k], idx[..., :k]
 

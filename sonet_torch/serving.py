@@ -59,15 +59,17 @@ moves one stored on another device type onto its device
 (``torch.export.passes.move_to_device_pass``), and a process using
 ``torch`` alone does the same.  A ``cuda``-only export keeps the windowed
 segment-max kernel as the operator ``sonet_torch::windowed_vals``, the
-node recentering's segment sums as ``sonet_torch::segment_sums`` and,
-traced on a card, each BatchNorm as ``sonet_torch::batchnorm_act_eval``
-(the fused kernels); unlike the JAX artifact, which embeds its Mosaic
-kernel, such a program names operators that must be registered before it
-loads, so ``load_exported`` imports the modules the manifest's
-``requires`` lists (``sonet_torch.ops.cuda.segment_max_window``,
-``sonet_torch.ops.cuda.batchnorm_act``, ``sonet_torch.ops.cuda.
-segment_sums``: the operators alone, no model code), and the kernels are
-built from the package's source at first use.
+node recentering's segment sums as ``sonet_torch::segment_sums``, the
+node sort as ``sonet_torch::node_sort`` and, traced on a card, each
+BatchNorm as ``sonet_torch::batchnorm_act_eval`` (the fused kernels) and
+each top-k selection as ``sonet_torch::smallest_k``; unlike the JAX
+artifact, which embeds its Mosaic kernel, such a program names operators
+that must be registered before it loads, so ``load_exported`` imports the
+modules the manifest's ``requires`` lists (``sonet_torch.ops.cuda.
+segment_max_window``, ``sonet_torch.ops.cuda.batchnorm_act``,
+``sonet_torch.ops.cuda.segment_sums``, ``sonet_torch.ops.cuda.sorts``: the
+operators alone, no model code), and the kernels are built from the
+package's source at first use.
 
 ``export_run(..., poly_batch=True)`` writes an any-batch-size artifact
 (manifest shapes carry ``None``), in one of two forms:
@@ -118,11 +120,14 @@ ARTIFACT_MANIFEST = "manifest.json"
 KERNEL_OP_MODULE = "sonet_torch.ops.cuda.segment_max_window"
 BATCHNORM_OP_MODULE = "sonet_torch.ops.cuda.batchnorm_act"
 SUMS_OP_MODULE = "sonet_torch.ops.cuda.segment_sums"
+SORTS_OP_MODULE = "sonet_torch.ops.cuda.sorts"
 # the module that registers each of the package's operators a program
 # may hold, in the order a manifest lists them
 _OP_MODULES = {"windowed_vals": KERNEL_OP_MODULE,
                "batchnorm_act_eval": BATCHNORM_OP_MODULE,
-               "segment_sums": SUMS_OP_MODULE}
+               "segment_sums": SUMS_OP_MODULE,
+               "node_sort": SORTS_OP_MODULE,
+               "smallest_k": SORTS_OP_MODULE}
 # the micro-batcher fills a symbolic artifact's dispatch toward this size
 _SYMBOLIC_FILL = 8
 
@@ -345,7 +350,8 @@ def export_run(run_dir: str, out_dir: Optional[str] = None,
         "output": _OUTPUT_DOC[cfg.task],
         "platforms": platforms,
         "pooling": pooling,
-        "requires": [m for op, m in _OP_MODULES.items() if op in held],
+        "requires": list(dict.fromkeys(
+            m for op, m in _OP_MODULES.items() if op in held)),
         "classes": cfg.classes,
         "checkpoint": ckpt,
         "torch_version": torch.__version__,

@@ -26,6 +26,7 @@ from sonet_torch.ops.cuda import segment_argmax as sam
 from sonet_torch.ops.cuda import segment_max_grad as smg
 from sonet_torch.ops.cuda import segment_max_window as smw
 from sonet_torch.ops.cuda import segment_sums as ss
+from sonet_torch.ops.cuda import sorts
 
 pytestmark = pytest.mark.cuda
 
@@ -1990,3 +1991,184 @@ def test_checkpoint_from_the_kernel_path_resumes_bit_for_bit(cuda_device,
         for name, t in entry.items():
             assert got[i][name].device == t.device, (i, name)
             assert torch.equal(got[i][name], t), (i, name)
+
+
+# ---------------------------------------------------------------------------
+# the train step's three sorts: csrc/sorts.cu
+# ---------------------------------------------------------------------------
+
+SORT_KERNELS = ("counting_sort", "smallest_k_sort", "subset_sort")
+# the PyTorch kernels of the stable sorts the three replace: the in-block
+# sort and the segmented radix sort of float32 or int32 keys
+TORCH_SORTS = ("radixSortKVInPlace", "fill_index_and_segment",
+               "sort_postprocess", "Policy<float", "Policy<int,")
+
+
+def _sort_both(op, *args):
+    """(the kernel's outputs, the plain version's: the stable torch.sort
+    code it replaces), both on the card; the kernel launched once."""
+    fn = getattr(sorts, op)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    return got, chip_smoke.sort_references(torch)[op](*args)
+
+
+@pytest.mark.parametrize("shape", chip_smoke.SORT_SHAPES,
+                         ids=[s[0] for s in chip_smoke.SORT_SHAPES])
+def test_sorts_equal_the_stable_sort_at_the_cells_shapes(cuda_device, shape):
+    """At each cell's shapes, on realistic inputs: the assignment's and the
+    kNN's top-k, the node sort of the assignment's ids and the subsample,
+    each bit for bit what the stable ``torch.sort`` it replaces gives on
+    the card, and ``point0_idx`` each cloud's first sorted slot of its
+    point 0's node."""
+    cells, B, raw, N, D, M, k, som_k = shape
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    keys, d_assign, d_knn, ids = chip_smoke.sort_inputs(
+        torch, gen, cuda_device, B, raw, N, D, M, k)
+    calls = [("smallest_k", (d_assign, k)), ("smallest_k", (d_knn, som_k)),
+             ("node_sort", (ids, M))]
+    if raw > N:
+        calls.append(("subset_select", (keys, N)))
+    for op, args in calls:
+        got, want = _sort_both(op, *args)
+        assert not chip_smoke.sorts_mismatch(torch, got, want), op
+    sorted_ids, perm, inv, point0 = sorts.node_sort(ids, M)
+    assert torch.equal(sorted_ids, torch.gather(ids, 1, perm).int())
+    assert torch.equal(torch.gather(perm, 1, inv), torch.arange(
+        ids.shape[1], device=cuda_device).expand_as(perm))
+    assert torch.equal(point0, inv[:, 0])
+    first = torch.searchsorted(sorted_ids, ids[:, :1].contiguous())[:, 0]
+    assert torch.equal(point0, first)
+
+
+@pytest.mark.parametrize("op", ["node_sort", "smallest_k", "subset_select"])
+def test_sorts_edge_cases(cuda_device, op):
+    """Ties, every value equal, zeros of both signs, NaN with infinities,
+    the kNN's pinned diagonal, k = L and every k up to 16, one node for
+    every id, empty nodes, M = 1 and 1024, n = 0 and n = L, row lengths at
+    the kernels' warp and step edges: each output the stable sort's bits,
+    and two calls the same."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    cases = {"node_sort": chip_smoke.node_sort_cases,
+             "smallest_k": chip_smoke.smallest_k_cases,
+             "subset_select": chip_smoke.subset_select_cases}[op](
+                 torch, gen, cuda_device)
+    failed = {}
+    for name, *args in cases:
+        got, want = _sort_both(op, *args)
+        again = getattr(sorts, op)(*args)
+        bad = chip_smoke.sorts_mismatch(torch, got, want)
+        if chip_smoke.sorts_mismatch(torch, got, again):
+            bad.append("two calls differ")
+        if bad:
+            failed[name] = bad
+    assert not failed
+
+
+def test_smallest_k_puts_nan_last_as_torch_sort_does(cuda_device):
+    """NaN sorts after +inf and NaNs keep their index order: a row with
+    fewer finite values than k returns its NaNs last, in index order."""
+    nan, inf = float("nan"), float("inf")
+    d = torch.tensor([[nan, 2.0, inf, nan, -0.0, 0.0, nan, -inf]],
+                     device=cuda_device)
+    vals, idx = sorts.smallest_k(d, 8)
+    assert idx.tolist() == [[7, 4, 5, 1, 2, 0, 3, 6]]
+    assert chip_smoke.same_bits(torch, vals, d[:, idx[0]])
+    want = torch.sort(d, dim=-1, stable=True)
+    assert torch.equal(idx, want.indices)
+
+
+def test_sorts_reject_what_they_do_not_take(cuda_device):
+    d = torch.rand((4, 64), device=cuda_device)
+    ids = torch.zeros((2, 30), dtype=torch.int32, device=cuda_device)
+    counts = (sorts.node_sort.launches, sorts.smallest_k.launches,
+              sorts.subset_select.launches)
+    for fn, args, err, match in (
+            (sorts.smallest_k, (d.double(), 3), TypeError, "dtype"),
+            (sorts.smallest_k, (d, 17), ValueError, "k <="),
+            (sorts.smallest_k, (d[:, :2], 3), ValueError, "k <="),
+            (sorts.smallest_k, (d.t(), 3), ValueError, "contiguous"),
+            (sorts.smallest_k, (d.cpu().to("meta"), 3), ValueError,
+             "one CUDA device"),
+            (sorts.node_sort, (ids.long(), 8), TypeError, "dtype"),
+            (sorts.node_sort, (ids, 1025), ValueError, "range"),
+            (sorts.node_sort, (ids[:, :0], 8), ValueError, "L >= 1"),
+            (sorts.node_sort, (ids.t(), 8), ValueError, "contiguous"),
+            (sorts.subset_select, (d.double(), 3), TypeError, "dtype"),
+            (sorts.subset_select, (d, 65), ValueError, "n <= L"),
+            (sorts.subset_select, (torch.empty(
+                (1, sorts.SUBSET_MAX_KEYS + 1), device="meta"), 3),
+             ValueError, str(sorts.SUBSET_MAX_KEYS)),
+            (sorts.subset_select, (d.t(), 3), ValueError, "contiguous")):
+        with pytest.raises(err, match=match):
+            fn(*args)
+    assert counts == (sorts.node_sort.launches, sorts.smallest_k.launches,
+                      sorts.subset_select.launches)
+
+
+def test_sorts_engage_once_a_captured_modelnet40_step(cuda_device):
+    """The full-width modelnet40 train step behind the device pipeline's
+    subsample (10,000 points a cloud, 5,000 kept), captured by
+    ``EpochGraph``: each of the capture's two Python-run steps launches the
+    subset selection once, the node sort once, as it launches kernel 1,
+    and the top-k selection twice (the assignment and the nodes' kNN); the
+    replays launch none; in a profiled replay the device rows that a
+    sort's name matches (the benchmark's ``sorts`` bucket) hold the three
+    kernels and none of the PyTorch sorts they replace: what else is left
+    there sorts int64 keys (``index_put_`` with ``accumulate``, the kNN
+    gather's backward)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark.trace import BUCKETS
+    from sonet_torch.data import device_pipeline as dp
+    from sonet_torch.train.graphs import EpochGraph
+    cfg = config.modelnet40().replace(dropout=0.0)
+    g = torch.Generator().manual_seed(0)
+    pc = torch.randn((16, 10000, 3), generator=g)
+    data = dp.DeviceData(
+        pc=pc.to(cuda_device),
+        sn=torch.nn.functional.normalize(torch.randn((16, 10000, 3),
+                                                     generator=g), dim=-1)
+        .to(cuda_device),
+        node=(pc[:, :64] + 0.05 * torch.randn((16, 64, 3), generator=g))
+        .to(cuda_device),
+        label=(torch.arange(16) % 40).to(cuda_device))
+    state = train.init_state(cfg, device=cuda_device, seed=0,
+                             steps_per_epoch=10)
+    train.state.set_capturable(state.optimizer, True)
+    step_fn, _ = train.make_steps(cfg, 10)
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+
+    def step(d, idx):
+        return step_fn(state, dp.sample_batch(d, idx, gen, cfg, train=True),
+                       gen)[1]
+    graph = EpochGraph(step, cuda_device, generators=(gen,),
+                       snapshot=lambda: train.state.snapshot(state))
+
+    def counts():
+        return (smw.windowed_vals.launches, sorts.node_sort.launches,
+                sorts.smallest_k.launches, sorts.subset_select.launches)
+    before = counts()
+    out = graph.run(data, np.arange(16).reshape(2, 8))
+    torch.cuda.synchronize()
+    ran, nodes, topk, subset = (a - b for a, b in zip(counts(), before))
+    assert graph.captures == 1 and graph.replays == 2 and ran == 2
+    assert np.isfinite(out["loss"]).all()
+    assert (nodes, topk, subset) == (ran, 2 * ran, ran)
+    after = counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graph.run(data, np.arange(8).reshape(1, 8))
+        torch.cuda.synchronize()
+    assert counts() == after and graph.replays == 3
+    pattern = dict(BUCKETS)["sorts"]
+    rows = [e.name for e in prof.events()
+            if e.device_type == DeviceType.CUDA and pattern.search(e.name)]
+    for kernel in SORT_KERNELS:
+        assert any(kernel in r for r in rows), kernel
+    others = {r for r in rows if not any(k in r for k in SORT_KERNELS)}
+    assert not {r for r in others if any(k in r for k in TORCH_SORTS)}
+    assert all("Policy<long" in r for r in others), others

@@ -35,7 +35,8 @@ from sonet_torch.convert import flatten, load_jax_variables
 from sonet_torch.models import build_model
 from sonet_torch.nn import layers
 from sonet_torch.serving import (ARTIFACT_MANIFEST, BATCHNORM_OP_MODULE,
-                                 KERNEL_OP_MODULE, SUMS_OP_MODULE,
+                                 KERNEL_OP_MODULE, SORTS_OP_MODULE,
+                                 SUMS_OP_MODULE,
                                  ServingEngine, build_serve_fn, export_run,
                                  input_signature, load_exported)
 from sonet_torch.tasks import serve as tserve
@@ -231,20 +232,23 @@ def test_load_exported_rejects_bad_inputs(run, artifact, case):
 
 @pytest.mark.parametrize("run", ["classify"], indirect=True)
 def test_kernel_export_holds_the_operator(run, tmp_path):
-    """A cuda-only export keeps kernel 1 as ``sonet_torch::windowed_vals``
-    and the recentering's sums as ``sonet_torch::segment_sums`` (traced
-    here on the CPU through the operators' fake implementations), and says
-    that loading it requires the operators' modules."""
+    """A cuda-only export keeps kernel 1 as ``sonet_torch::windowed_vals``,
+    the recentering's sums as ``sonet_torch::segment_sums`` and the node
+    sort as ``sonet_torch::node_sort`` (traced here on the CPU through the
+    operators' fake implementations), and says that loading it requires
+    the operators' modules."""
     task, run_dir, *_ = run
     manifest = export_run(run_dir, out_dir=str(tmp_path), device="cpu",
                           platforms=["cuda"])
     assert manifest["pooling"] == "sorted_window"
-    assert manifest["requires"] == [KERNEL_OP_MODULE, SUMS_OP_MODULE]
+    assert manifest["requires"] == [KERNEL_OP_MODULE, SUMS_OP_MODULE,
+                                    SORTS_OP_MODULE]
     program = torch.export.load(str(tmp_path / "model.pt2"))
     ops = [str(n.target) for n in program.graph.nodes
            if n.op == "call_function"]
     assert ops.count("sonet_torch.windowed_vals.default") == 1  # the pooling
     assert ops.count("sonet_torch.segment_sums.default") == 1   # recentering
+    assert ops.count("sonet_torch.node_sort.default") == 1      # node sort
     with pytest.raises(ValueError, match="exported for"):
         load_exported(str(tmp_path), device="cpu")
 
@@ -262,7 +266,7 @@ def test_kernel_export_holds_the_batchnorm_operator(run, tmp_path,
     manifest = export_run(run_dir, out_dir=str(tmp_path), device="cpu",
                           platforms=["cuda"])
     assert manifest["requires"] == [KERNEL_OP_MODULE, BATCHNORM_OP_MODULE,
-                                    SUMS_OP_MODULE]
+                                    SUMS_OP_MODULE, SORTS_OP_MODULE]
     program = torch.export.load(str(tmp_path / "model.pt2"))
     ops = [str(n.target) for n in program.graph.nodes
            if n.op == "call_function"]
@@ -273,6 +277,55 @@ def test_kernel_export_holds_the_batchnorm_operator(run, tmp_path,
     with torch.no_grad():
         got = program.module()(*(torch.from_numpy(a[:B]) for a in x))
     _close(got.numpy(), want, JAX_TOL)
+
+
+@pytest.mark.parametrize("run", ["classify"], indirect=True)
+def test_kernel_export_holds_the_selection_operator(run, tmp_path,
+                                                    monkeypatch):
+    """Where the top-k selections take the kernel (on a card; here by
+    ``pairwise._selects``, traced through the operator's fake), an export
+    keeps the assignment's and the kNN's as ``sonet_torch::smallest_k``,
+    names the operators' module once under ``requires``, and the program
+    answers as the JAX package does (the operator's CPU
+    implementation)."""
+    from sonet_torch.ops import pairwise
+    task, run_dir, cfg, x, want = run
+    monkeypatch.setattr(pairwise, "_selects",
+                        lambda d, k: 1 <= k <= min(16, d.shape[-1]))
+    manifest = export_run(run_dir, out_dir=str(tmp_path), device="cpu",
+                          platforms=["cuda"])
+    assert manifest["requires"] == [KERNEL_OP_MODULE, SUMS_OP_MODULE,
+                                    SORTS_OP_MODULE]
+    program = torch.export.load(str(tmp_path / "model.pt2"))
+    ops = [str(n.target) for n in program.graph.nodes
+           if n.op == "call_function"]
+    assert ops.count("sonet_torch.smallest_k.default") == 2  # assign, kNN
+    with torch.no_grad():
+        got = program.module()(*(torch.from_numpy(a[:B]) for a in x))
+    _close(got.numpy(), want, JAX_TOL)
+
+
+@pytest.mark.parametrize("op", ["node_sort", "smallest_k", "subset_select"])
+def test_export_keeps_each_sort_operator_as_one_node(op):
+    """A program that calls one of the sort operators keeps it as one node
+    of the exported graph (its fake gives the shapes), and the exported
+    program answers as the operator does."""
+    from sonet_torch.ops.cuda import sorts
+    fn = getattr(sorts, op)
+    x = (torch.randint(0, 8, (2, 30), dtype=torch.int32) if op == "node_sort"
+         else torch.rand((2, 30)))
+
+    class Call(torch.nn.Module):
+        def forward(self, t):
+            return fn(t, 8 if op == "node_sort" else 5)
+    program = torch.export.export(Call(), (x,))
+    ops = [str(n.target) for n in program.graph.nodes
+           if n.op == "call_function"]
+    assert ops.count(f"sonet_torch.{op}.default") == 1
+    got, want = program.module()(x), Call()(x)
+    for a, b in zip(*((t if isinstance(t, tuple) else (t,))
+                      for t in (got, want))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("run", ["classify"], indirect=True)

@@ -762,6 +762,258 @@ def test_encoder_recenters_through_segment_sums_on_the_sorted_path(
 
 
 # ---------------------------------------------------------------------------
+# the train step's sorts: sonet_torch::node_sort, ::smallest_k and
+# ::subset_select on the CPU
+# ---------------------------------------------------------------------------
+
+def _sort_case(op, case):
+    """The arguments of ``op`` for one of the contract's cases."""
+    rs = np.random.RandomState(5)
+    if op == "node_sort":
+        ids = {"random": rs.randint(0, 10, (3, 90)),
+               "ties: two nodes": rs.randint(4, 6, (3, 90)),
+               "every id on one node": np.full((3, 90), 7),
+               "empty nodes": rs.choice([0, 2, 9], (3, 90)),
+               "M = 1": np.zeros((3, 90)),
+               "L = 1": rs.randint(0, 10, (3, 1))}[case]
+        return _t(ids.astype(np.int32)), 1 if case == "M = 1" else 10
+    x = {"random": rs.rand(3, 4, 40),
+         "ties: two nodes": rs.randint(0, 3, (3, 4, 40)),
+         "signed zeros": np.where(rs.rand(3, 4, 40) < 0.5, 0.0, -0.0),
+         "nan and infinities": np.where(
+             rs.rand(3, 4, 40) < 0.3, np.nan,
+             rs.choice([-np.inf, 1.0, np.inf], (3, 4, 40))),
+         "k = L": rs.rand(3, 4, 9)}[case].astype(np.float32)
+    if op == "subset_select":
+        x = x.reshape(-1, x.shape[-1])
+        return _t(x), x.shape[-1] if case == "k = L" else x.shape[-1] // 2
+    return _t(x), x.shape[-1] if case == "k = L" else 5
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype.is_floating_point else t
+
+
+SORT_CASES = {
+    "node_sort": ["random", "ties: two nodes", "every id on one node",
+                  "empty nodes", "M = 1", "L = 1"],
+    "smallest_k": ["random", "ties: two nodes", "signed zeros",
+                   "nan and infinities", "k = L"],
+    "subset_select": ["random", "ties: two nodes", "signed zeros",
+                      "nan and infinities", "k = L"]}
+
+
+@pytest.mark.parametrize("op,case", [(op, c) for op, cases in
+                                     SORT_CASES.items() for c in cases])
+def test_sorts_cpu_are_the_stable_sort(op, case):
+    """On the CPU each operator is the stable torch.sort / argsort code its
+    caller ran before the kernel, bit for bit (NaN and signed zeros too),
+    and launches nothing."""
+    from sonet_torch.ops.cuda import sorts
+    args = _sort_case(op, case)
+    fn = getattr(sorts, op)
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before
+    if op == "node_sort":
+        ids, M = args
+        s, perm = torch.sort(ids, dim=1, stable=True)
+        inv = torch.argsort(perm, dim=1)
+        want = (s, perm, inv,
+                torch.searchsorted(s, ids[:, :1].contiguous())[:, 0])
+    elif op == "smallest_k":
+        d, k = args
+        vals, idx = torch.sort(d, dim=-1, stable=True)
+        want = (vals[..., :k], idx[..., :k])
+    else:
+        keys, n = args
+        want = (torch.argsort(keys, dim=1, stable=True)[:, :n],)
+    got = got if isinstance(got, tuple) else (got,)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    if op == "node_sort":
+        assert torch.equal(got[3], got[2][:, 0])      # point 0's slot
+
+
+def test_sorts_order_zeros_nan_and_ties_as_the_contract_says():
+    """-0.0 equals +0.0, NaN lies after +inf and NaNs keep their index
+    order, equal values keep theirs."""
+    from sonet_torch.ops.cuda import sorts
+    nan, inf = float("nan"), float("inf")
+    d = torch.tensor([[nan, 2.0, inf, nan, -0.0, 0.0, nan, -inf, 2.0]])
+    vals, idx = sorts.smallest_k(d, 9)
+    assert idx.tolist() == [[7, 4, 5, 1, 8, 2, 0, 3, 6]]
+    assert torch.equal(_bits(vals), _bits(d[:, idx[0]]))
+    assert sorts.subset_select(d, 4).tolist() == [[7, 4, 5, 1]]
+
+
+@pytest.mark.parametrize("op", ["node_sort", "smallest_k", "subset_select"])
+def test_sorts_raise_for_another_device(op):
+    """A tensor on a device that is neither the CPU nor a card (here
+    ``meta``) raises; nothing is launched."""
+    from sonet_torch.ops.cuda import sorts
+    args = _sort_case(op, "random")
+    fn = getattr(sorts, op)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fn(args[0].to("meta"), args[1])
+    assert fn.launches == 0
+
+
+def test_sorts_fake_give_the_shapes():
+    """The fake implementations (what ``torch.export`` traces through) give
+    each output's shape and dtype; ``opcheck`` holds the schemas, the fakes
+    and the autograd registration to the CPU implementations."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    ops = torch.ops.sonet_torch
+    ids, _ = _sort_case("node_sort", "random")
+    d, _ = _sort_case("smallest_k", "random")
+    keys = d.reshape(-1, d.shape[-1])
+    with FakeTensorMode() as mode:
+        out = ops.node_sort(mode.from_tensor(ids), 10)
+        vals, idx = ops.smallest_k(mode.from_tensor(d), 4)
+        choice = ops.subset_select(mode.from_tensor(keys), 7)
+    assert [(tuple(t.shape), t.dtype) for t in out] == [
+        ((3, 90), torch.int32), ((3, 90), torch.int64),
+        ((3, 90), torch.int64), ((3,), torch.int64)]
+    assert (tuple(vals.shape), vals.dtype) == ((3, 4, 4), torch.float32)
+    assert (tuple(idx.shape), idx.dtype) == ((3, 4, 4), torch.int64)
+    assert (tuple(choice.shape), choice.dtype) == ((12, 7), torch.int64)
+    torch.library.opcheck(ops.node_sort.default, (ids, 10))
+    torch.library.opcheck(ops.smallest_k.default, (d.requires_grad_(), 4))
+    torch.library.opcheck(ops.subset_select.default, (keys, 7))
+
+
+def test_smallest_k_backward_equals_autograd_through_the_sort():
+    """The values' gradient goes back to their columns, as through the
+    stable sort and its slice; the indices carry none."""
+    from sonet_torch.ops.cuda import sorts
+    d, k = _sort_case("smallest_k", "ties: two nodes")
+    g = torch.randn((3, 4, k), generator=torch.Generator().manual_seed(1))
+    mine = d.clone().requires_grad_()
+    vals, idx = sorts.smallest_k(mine, k)
+    assert vals.requires_grad and not idx.requires_grad
+    (vals * g).sum().backward()
+    plain = d.clone().requires_grad_()
+    (torch.sort(plain, dim=-1, stable=True)[0][..., :k] * g).sum().backward()
+    assert torch.equal(mine.grad, plain.grad)
+
+
+@pytest.mark.parametrize("op", ["node_sort", "smallest_k", "subset_select"])
+def test_sorts_reject_what_they_do_not_take(op):
+    from sonet_torch.ops.cuda import sorts
+    args = _sort_case(op, "random")
+    x = args[0]
+    faults = {
+        "node_sort": [((x.long(), 10), TypeError, "dtype"),
+                      ((x[0], 10), ValueError, "want"),
+                      ((x[:, :0], 10), ValueError, "L >= 1"),
+                      ((x, 0), ValueError, "range"),
+                      ((x, 1025), ValueError, "range")],
+        "smallest_k": [((x.double(), 3), TypeError, "dtype"),
+                       ((x, 0), ValueError, "k <="),
+                       ((x, 17), ValueError, "k <="),
+                       ((x[..., :2], 3), ValueError, "k <=")],
+        "subset_select": [((x.double(), 3), TypeError, "dtype"),
+                          ((x[0], 3), ValueError, "want"),
+                          ((x, -1), ValueError, "n <= L"),
+                          ((x, 41), ValueError, "n <= L"),
+                          ((torch.empty((1, sorts.SUBSET_MAX_KEYS + 1),
+                                        device="meta"), 3), ValueError,
+                           str(sorts.SUBSET_MAX_KEYS))]}
+    fn = getattr(sorts, op)
+    for a, err, match in faults[op]:
+        with pytest.raises(err, match=match):
+            fn(*a)
+    assert fn.launches == 0
+
+
+def test_pairwise_takes_the_selection_kernel_on_a_card_only(monkeypatch):
+    """``_smallest_k`` takes the selection operator for a card's tensors
+    and k up to 16, and the sort itself on the CPU (so a program traced
+    there holds plain operators); both give the same assignment and kNN."""
+    from sonet_torch.ops import pairwise
+    from sonet_torch.ops.cuda import sorts
+    rs = np.random.RandomState(3)
+    x = _t(rs.randn(2, 50, 3).astype(np.float32))
+    nodes = _t(rs.randn(2, 16, 3).astype(np.float32))
+    assert not pairwise._selects(x, 3)
+    plain = (tops.assign_topk(x, nodes, 3), tops.knn(nodes, 9))
+    calls = []
+
+    def counted(d, k):
+        calls.append((tuple(d.shape), k))
+        return sorts.smallest_k(d, k)
+    monkeypatch.setattr(pairwise, "_selects", lambda d, k: 1 <= k <= 16)
+    monkeypatch.setattr(pairwise, "smallest_k", counted)
+    routed = (tops.assign_topk(x, nodes, 3), tops.knn(nodes, 9))
+    assert calls == [((2, 50, 16), 3), ((2, 16, 16), 9)]
+    for a, b in zip(plain[0], routed[0]):
+        assert torch.equal(a, b)
+    assert torch.equal(plain[1], routed[1])
+
+
+@pytest.mark.parametrize("pooling", ["sorted_window", "scatter"])
+def test_encoder_sorts_nodes_through_node_sort(pooling, monkeypatch):
+    """The encoder's sorted pipeline takes the node sort, the permutation
+    both ways and point 0's slot from ``node_sort`` once a forward; the
+    scatter path never calls it."""
+    from sonet_torch import config as tcfg
+    from sonet_torch.models import build_model
+    from sonet_torch.nn import encoder
+
+    calls, real = [], encoder.node_sort
+
+    def counted(ids, M):
+        calls.append((tuple(ids.shape), M))
+        return real(ids, M)
+    monkeypatch.setattr(encoder, "node_sort", counted)
+    cfg = tcfg.tiny_test().replace(pooling=pooling)
+    model = build_model(cfg, device="cpu", seed=0)
+    rs = np.random.RandomState(0)
+    pc = _t(rs.randn(2, cfg.input_pc_num, 3).astype(np.float32))
+    sn = _t(rs.randn(2, cfg.input_pc_num, 3).astype(np.float32))
+    _, enc = model(pc, sn, pc[:, :cfg.node_num] + 0.1)
+    kN = cfg.k * cfg.input_pc_num
+    assert calls == ([((2, kN), cfg.node_num)]
+                     if pooling == "sorted_window" else [])
+    if pooling == "sorted_window":
+        assert torch.equal(torch.gather(enc.inv_perm, 1, enc.perm),
+                           torch.arange(kN).expand(2, kN))
+
+
+def test_apply_sample_subsamples_through_subset_select(monkeypatch):
+    """The device pipeline's subsample takes its indices from
+    ``subset_select`` for rows up to ``SUBSET_MAX_KEYS`` keys (here lowered
+    to 500), the same indices as the stable argsort it replaces, and keeps
+    the argsort above that."""
+    from sonet_torch import config as tcfg
+    from sonet_torch.data import device_pipeline as dp
+    cfg = tcfg.tiny_test().replace(input_pc_num=64)
+    calls, real = [], dp.subset_select
+
+    def counted(keys, n):
+        calls.append((tuple(keys.shape), n))
+        return real(keys, n)
+    monkeypatch.setattr(dp, "subset_select", counted)
+    monkeypatch.setattr(dp, "SUBSET_MAX_KEYS", 500)
+    g = torch.Generator().manual_seed(0)
+    for raw in (200, 501):
+        raw_rows = {"pc": torch.randn((2, raw, 3), generator=g),
+                    "node": torch.randn((2, cfg.node_num, 3), generator=g),
+                    "label": torch.arange(2),
+                    "seg": torch.randint(0, 4, (2, raw), generator=g)}
+        keys = torch.rand((2, raw), generator=g)
+        batch = dp.apply_sample(raw_rows, {"keys": keys}, cfg, train=False)
+        choice = torch.argsort(keys, dim=1, stable=True)[:, :64]
+        assert torch.equal(batch["pc"], torch.gather(
+            raw_rows["pc"], 1, choice[..., None].expand(-1, -1, 3)))
+        assert torch.equal(batch["seg"], torch.gather(raw_rows["seg"], 1,
+                                                      choice))
+    assert calls == [((2, 200), 64)]
+
+
+# ---------------------------------------------------------------------------
 # Adam's update: ops.cuda.adam_step (its plain version on the CPU) and
 # train.state.adam_update
 # ---------------------------------------------------------------------------
